@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from `crypto3_zk_tpu_torch/csrc/`, holds each of
+them against its plain PyTorch version on the card (exact equality: every
+value is an integer), then drives the port's main path through the entry
+points a user calls: Groth16 `generate`, `prove` (twice, the second is
+reported) and `verify` over alt_bn128 on a product-chain circuit of 2^16
+constraints, whose A and B sides are both dense. It fails (non-zero exit, no
+result line) without a CUDA device, when a kernel does not build, launch or
+agree, when a kernel of the path was never launched by `prove`, or when the
+verifier's answers are wrong.
+
+Output: one line per phase with its seconds; then, on a line of its own, a
+JSON object {"kernels": [...]} with every kernel's numbers; then the card's
+name and power limit; then the result line.
+
+`--kernels-only` stops after the kernel checks, for a quick look at a kernel
+edit: it drives no main path, so its `kernels` line carries no `launches`
+and it prints no result line. With no arguments the run is the full one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import random
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+OPS_PER_S = 67e12            # 32-bit operations outside the tensor cores
+                             # (the data sheet's float32 rate; a 32-bit
+                             # multiply-add counts as two operations)
+FLUSH_BYTES = 64 << 20       # cycle inputs over more than the 50 MB L2
+LOG2_CONSTRAINTS = 16        # the main path's circuit (`bench.py`'s size)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# inputs and timing
+# ---------------------------------------------------------------------------
+
+def rand_field(torch, fs, shape, gen):
+    """Uniform 16-bit digits with the top digit below the modulus's, so every
+    element is < p; lanes 0..2 of the flattened batch are 0, R mod p (one)
+    and p - 1."""
+    top = int(fs.p_limbs[-1])
+    x = torch.randint(0, 1 << 16, (fs.nl,) + tuple(shape), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    x[-1] = torch.randint(0, top, tuple(shape), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    flat = x.reshape(fs.nl, -1)
+    edge = [0, fs.R_mod_p, fs.p - 1]
+    for lane, v in enumerate(edge if flat.shape[1] >= 8 else []):
+        flat[:, lane] = torch.tensor(
+            [(v >> (16 * j)) & 0xFFFF for j in range(fs.nl)],
+            dtype=torch.int32, device="cuda")
+    return x
+
+
+def nonzero(torch, x):
+    """Replace zero elements by the value 1 (the scans take nonzero input)."""
+    z = (x == 0).all(dim=0)
+    x = x.clone()
+    x[0] = torch.where(z, torch.ones_like(x[0]), x[0])
+    return x
+
+
+def time_ms(torch, fn, n_inputs: int, reps: int,
+            queued: bool = False) -> float:
+    """Mean milliseconds of `fn(i)` by CUDA events; `i` cycles over the
+    input sets so that consecutive launches do not find their data in L2.
+
+    With `queued`, the number is device time and not the host's launch rate:
+    a spin kernel holds the stream while the host enqueues all `reps` calls
+    behind it, so the timed launches run back to back. That the spin was
+    still running when the last call had been enqueued is checked (the start
+    event, recorded after the spin, has not completed yet); if the host was
+    too slow the spin is lengthened, and after a few attempts it is an
+    error."""
+    fn(0)
+    torch.cuda.synchronize()
+    spin_cycles = 20_000_000 if queued else 0      # about 10 ms
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(spin_cycles)
+        start.record()
+        for r in range(reps):
+            fn(r % n_inputs)
+        end.record()
+        held = not queued or not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        spin_cycles *= 4
+    raise AssertionError("the stream drained during a timed loop: the host "
+                         "could not enqueue the launches fast enough")
+
+
+def max_abs_err(torch, got, want) -> int:
+    gs = got if isinstance(got, tuple) else (got,)
+    ws = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(gs, ws):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shape/dtype differ: {g.shape} {g.dtype} "
+                                 f"vs {w.shape} {w.dtype}")
+        err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
+                           .abs().max().item()))
+    return err
+
+
+def bound(bytes_moved: int, ops: int):
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def mont_ops(nl: int) -> int:
+    """32-bit operations of one word-level CIOS product: NW*(2NW+1)
+    multiply-adds, two operations each."""
+    nw = nl // 2
+    return 2 * nw * (2 * nw + 1)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: every kernel against its plain version, on the card
+# ---------------------------------------------------------------------------
+
+def check_kernels(torch):
+    from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2016)
+    fq = P.ALT_BN128_FQ
+    fr = P.ALT_BN128_FR
+    rows = []
+
+    def compare(name, fs, kernel, plain, inputs):
+        got = kernel(fs, *inputs)
+        torch.cuda.synchronize()
+        want = plain(fs, *inputs)
+        err = max_abs_err(torch, got, want)
+        shapes = [tuple(t.shape) if hasattr(t, "shape") else t for t in inputs]
+        log(f"  {name} {fs.name} {shapes}: max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"kernel {name} disagrees with its plain "
+                                 f"version on {fs.name} {shapes}")
+        return err
+
+    def measure(name, source, replaces, fs, kernel, plain, make, bytes_moved,
+                ops, per_set_bytes, extra_err=0):
+        n_sets = max(1, -(-FLUSH_BYTES // per_set_bytes))
+        sets = [make() for _ in range(n_sets)]
+        err = max(extra_err, compare(name, fs, kernel, plain, sets[0]))
+        ms = time_ms(torch, lambda i: kernel(fs, *sets[i]), n_sets, 20,
+                     queued=True)
+        # the plain version is many library launches; its time is what a
+        # caller waits for, the host's share included
+        plain_ms = time_ms(torch, lambda i: plain(fs, *sets[i]), n_sets, 2)
+        bound_ms, bound_by = bound(bytes_moved, ops)
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None,
+                     "shape": [list(t.shape) for t in sets[0]
+                               if hasattr(t, "shape")]})
+        log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
+            f"{bound_ms:.4f} ms by {bound_by}")
+
+    # kernel 1: Montgomery multiply (and the add / subtract entries)
+    n = 1 << 20
+    bls = P.BLS12_381_FQ
+    err = compare("mont_mul", bls, HF.mont_mul_hopper, HF.mont_mul_plain,
+                  (rand_field(torch, bls, (1 << 16,), gen),
+                   rand_field(torch, bls, (1 << 16,), gen)))
+    # operands that broadcast or are views reach the kernel through strides
+    a3 = rand_field(torch, fr, (512, 256), gen)
+    err = max(err, compare(
+        "mont_mul(broadcast)", fr, HF.mont_mul_hopper, HF.mont_mul_plain,
+        (a3.transpose(1, 2), rand_field(torch, fr, (1, 1), gen))))
+    a2, b2 = rand_field(torch, fq, (n,), gen), rand_field(torch, fq, (n,), gen)
+    compare("add", fq, HF.add_hopper, HF.add_plain, (a2, b2))
+    compare("sub", fq, HF.sub_hopper, HF.sub_plain, (a2, b2))
+    a12 = rand_field(torch, bls, (1 << 12,), gen)
+    b12 = rand_field(torch, bls, (1 << 12,), gen)
+    compare("add", bls, HF.add_hopper, HF.add_plain, (a12, b12))
+    compare("sub", bls, HF.sub_hopper, HF.sub_plain, (a12, b12))
+    del a2, b2, a3, a12, b12
+    measure("mont_mul", "crypto3_zk_tpu_torch/csrc/mont_mul.cu",
+            "crypto3_zk_tpu/ops/pallas_field.py:126", fq,
+            HF.mont_mul_hopper, HF.mont_mul_plain,
+            lambda: (rand_field(torch, fq, (n,), gen),
+                     rand_field(torch, fq, (n,), gen)),
+            bytes_moved=3 * fq.nl * 4 * n, ops=mont_ops(fq.nl) * n,
+            per_set_bytes=2 * fq.nl * 4 * n, extra_err=err)
+
+    # kernel 2: row NTT, both passes of the 2^17 four-step, both directions
+    err = 0
+    for m_rows, b in ((512, 256), (256, 512)):
+        for inverse in (False, True):
+            err = max(err, compare(
+                "ntt_rows", fr, HF.ntt_rows_hopper, HF.ntt_rows_plain,
+                (rand_field(torch, fr, (m_rows, b), gen), inverse)))
+    # the 12-word instance: bls12-381 Fq has roots of unity of order 2 only
+    err = max(err, compare("ntt_rows", bls, HF.ntt_rows_hopper,
+                           HF.ntt_rows_plain,
+                           (rand_field(torch, bls, (4096, 2), gen), False)))
+    m_rows, b = 256, 512
+    butterflies = m_rows * (b // 2) * 9
+    measure("ntt_rows", "crypto3_zk_tpu_torch/csrc/ntt_rows.cu",
+            "crypto3_zk_tpu/ops/pallas_field.py:184", fr,
+            HF.ntt_rows_hopper, HF.ntt_rows_plain,
+            lambda: (rand_field(torch, fr, (m_rows, b), gen), False),
+            bytes_moved=fr.nl * 4 * (2 * m_rows * b + b // 2),
+            ops=butterflies * (mont_ops(fr.nl) + 2 * fr.nl),
+            per_set_bytes=fr.nl * 4 * m_rows * b, extra_err=err)
+
+    # kernels 3 and 4: the scans of the batched inversion at the width of a
+    # 2^21-lane halving pass
+    k, c = 64, 1 << 15
+    scan_bytes = fq.nl * 4 * (3 * k * c + c)
+    err3 = compare("inv_scans", bls, HM.inv_scans_hopper, HM.inv_scans_plain,
+                   (nonzero(torch, rand_field(torch, bls, (k, 256), gen)),))
+    err4 = compare("mul3", bls, HM.mul3_bcast_hopper, HM.mul3_bcast_plain,
+                   (rand_field(torch, bls, (k, 256), gen),
+                    rand_field(torch, bls, (k, 256), gen),
+                    rand_field(torch, bls, (256,), gen)))
+    measure("inv_scans", "crypto3_zk_tpu_torch/csrc/inv_scans.cu",
+            "crypto3_zk_tpu/ops/pallas_msm.py:80", fq,
+            HM.inv_scans_hopper, HM.inv_scans_plain,
+            lambda: (nonzero(torch, rand_field(torch, fq, (k, c), gen)),),
+            bytes_moved=scan_bytes, ops=2 * k * c * mont_ops(fq.nl),
+            per_set_bytes=fq.nl * 4 * k * c, extra_err=err3)
+    measure("mul3", "crypto3_zk_tpu_torch/csrc/mul3.cu",
+            "crypto3_zk_tpu/ops/pallas_msm.py:124", fq,
+            HM.mul3_bcast_hopper, HM.mul3_bcast_plain,
+            lambda: (rand_field(torch, fq, (k, c), gen),
+                     rand_field(torch, fq, (k, c), gen),
+                     rand_field(torch, fq, (c,), gen)),
+            bytes_moved=scan_bytes, ops=2 * k * c * mont_ops(fq.nl),
+            per_set_bytes=2 * fq.nl * 4 * k * c, extra_err=err4)
+    return rows
+
+
+def launch_counts() -> dict:
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    return {**HF.LAUNCHES, **HM.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    for counts in (HF.LAUNCHES, HM.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path
+# ---------------------------------------------------------------------------
+
+TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
+         "gamma": 0x456789A, "delta": 0x56789AB}
+
+
+def small_agreement(torch):
+    """The card's proof equals the proof of the plain versions on the CPU on
+    a 20-constraint circuit, with the MSM thresholds lowered so that the
+    batched-affine MSM runs on both."""
+    from crypto3_zk_tpu_torch.arithmetization.circuits import product_chain
+    from crypto3_zk_tpu_torch.fields import curves as CV
+    from crypto3_zk_tpu_torch.models import groth16 as G16
+
+    curve = CV.ALT_BN128
+    saved = (G16._DEVICE_MSM_MIN, G16._MSM_WINDOW_BITS,
+             G16._FIXED_BASE_DEVICE_MIN)
+    G16._DEVICE_MSM_MIN, G16._MSM_WINDOW_BITS = 8, 5
+    G16._FIXED_BASE_DEVICE_MIN = 8
+    try:
+        proofs = []
+        for device in ("cuda", "cpu"):
+            cs, primary, aux = product_chain(curve.fr.p, 20)
+            kp = G16.generate(curve, cs, toxic=TOXIC, device=device)
+            proofs.append((kp.pk.A_query, kp.pk.B_query_g2, G16.prove(
+                kp.pk, primary, aux, zk_rs=(11, 13), device=device)))
+        if proofs[0] != proofs[1]:
+            raise AssertionError("card and CPU proofs differ on the small "
+                                 "circuit")
+        if not G16.verify(kp.vk, primary, proofs[0][2]):
+            raise AssertionError("small-circuit proof rejected")
+    finally:
+        (G16._DEVICE_MSM_MIN, G16._MSM_WINDOW_BITS,
+         G16._FIXED_BASE_DEVICE_MIN) = saved
+
+
+def msm_oracle_check(curve, log_n: int = 10, seed: int = 7) -> float:
+    """A 2^10 G1 MSM over small multiples of the generator, whose exact
+    answer is one scalar reduction."""
+    from crypto3_zk_tpu_torch.fields import curves as CV
+    from crypto3_zk_tpu_torch.ops.msm_affine import MSMBases
+
+    n = 1 << log_n
+    rng = random.Random(seed)
+    base, acc = [], None
+    for _ in range(256):
+        acc = CV.g1_add(curve, acc, curve.g1)
+        base.append(acc)
+    sel = [rng.randrange(256) for _ in range(n)]
+    scalars = [rng.randrange(curve.fr.p) for _ in range(n)]
+    tot = sum(s * (j + 1) for j, s in zip(sel, scalars)) % curve.fr.p
+    t0 = time.perf_counter()
+    got = MSMBases(curve, [base[j] for j in sel]).run(scalars)
+    dt = time.perf_counter() - t0
+    if got != CV.g1_mul(curve, curve.g1, tot):
+        raise AssertionError(f"MSM 2^{log_n} on {curve.name} disagrees "
+                             f"with its oracle")
+    return dt
+
+
+def main_path(torch) -> dict:
+    from crypto3_zk_tpu_torch.arithmetization.circuits import product_chain
+    from crypto3_zk_tpu_torch.fields import curves as CV
+    from crypto3_zk_tpu_torch.models import groth16 as G16
+
+    curve = CV.ALT_BN128
+    ncons = 1 << LOG2_CONSTRAINTS
+    t0 = time.perf_counter()
+    cs, primary, aux = product_chain(curve.fr.p, ncons)
+    log(f"circuit: product chain, {ncons} constraints, "
+        f"{cs.num_variables} variables: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    kp = G16.generate(curve, cs, toxic=TOXIC)
+    torch.cuda.synchronize()
+    log(f"keygen: {time.perf_counter() - t0:.2f} s")
+    for name in ("A_query", "B_query_g1", "B_query_g2", "H_query", "L_query"):
+        q = getattr(kp.pk, name)
+        log(f"  {name}: {len(q)} bases, "
+            f"{sum(pt is not None for pt in q)} finite")
+    if sum(pt is not None for pt in kp.pk.B_query_g2) < ncons:
+        raise AssertionError("the B side of the circuit is not dense")
+
+    zk_rng = random.Random(12)
+    for attempt in ("first", "second"):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        proof = G16.prove(kp.pk, primary, aux, rng=zk_rng)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+        phases = ", ".join(f"{k} {v:.2f}"
+                           for k, v in G16.LAST_PROVE_SECONDS.items())
+        log(f"prove ({attempt}): {dt:.2f} s [{phases}] peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    log(f"kernel launches in the second prove: {counts}")
+    idle = [k for k, v in counts.items() if v <= 0]
+    if idle:
+        raise AssertionError(f"prove never launched {idle}")
+
+    t0 = time.perf_counter()
+    ok = G16.verify(kp.vk, primary, proof)
+    log(f"verify: {time.perf_counter() - t0:.2f} s -> {ok}")
+    if not ok:
+        raise AssertionError("the host verifier rejected the proof")
+    if G16.verify(kp.vk, [primary[0] + 1], proof):
+        raise AssertionError("the verifier accepted a wrong public input")
+    log("verify with public input + 1: rejected")
+    return counts
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--verbose-build", action="store_true",
+                    help="print ptxas' register and shared-memory report")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from crypto3_zk_tpu_torch import kernels as K
+
+    t_all = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    log(f"device: {card}")
+
+    secs = K.build_all(verbose=args.verbose_build)
+    log(f"build: {secs:.2f} s ({len(K.SOURCES)} sources, nvcc sm_90a)")
+
+    t0 = time.perf_counter()
+    rows = check_kernels(torch)
+    log(f"kernels: {time.perf_counter() - t0:.2f} s, launches so far "
+        f"{launch_counts()}")
+
+    if not args.kernels_only:
+        t0 = time.perf_counter()
+        small_agreement(torch)
+        log(f"small circuit, card against CPU: equal proofs: "
+            f"{time.perf_counter() - t0:.2f} s")
+        from crypto3_zk_tpu_torch.fields import curves as CV
+        for curve in (CV.ALT_BN128, CV.BLS12_381):
+            dt = msm_oracle_check(curve)
+            log(f"msm 2^10 on {curve.name} against its oracle: equal: "
+                f"{dt:.2f} s")
+        counts = main_path(torch)
+        for row in rows:
+            row["launches"] = counts[row["name"]]
+    log(json.dumps({"kernels": rows}))
+    log(f"total: {time.perf_counter() - t_all:.2f} s")
+    log(card)
+    if args.kernels_only:
+        return 0
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,123 @@
+"""Where one Groth16 prove spends its time on the GPU.
+
+    python3 -m crypto3_zk_tpu_torch.tools.profile_prove [--out profile.json]
+
+Generates a key for the product-chain circuit of 2^16 constraints over
+alt_bn128 (the size `chip_smoke.py` proves), proves once to
+warm up (kernel build, base encoding), then proves three more times:
+
+1. plain, for the wall time and the prover's own phase seconds;
+2. under `torch.profiler`, for the time the device was busy (the sum of all
+   kernel times), the idle share, and the kernels ranked by device time;
+3. under `cProfile`, for the host functions ranked by cumulative time.
+
+Both profilers slow the host down, so the idle share is given against the
+profiled wall time and against the plain one. Prints one JSON object, and
+writes it to `--out` if given. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import cProfile
+import json
+import pstats
+import random
+import subprocess
+import sys
+import time
+
+import torch
+
+from ..arithmetization.circuits import product_chain
+from ..fields import curves as CV
+from ..models import groth16 as G16
+
+LOG2_CONSTRAINTS = 16
+TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
+         "gamma": 0x456789A, "delta": 0x56789AB}
+
+
+def _prove(kp, primary, aux):
+    t0 = time.perf_counter()
+    proof = G16.prove(kp.pk, primary, aux, rng=random.Random(12))
+    torch.cuda.synchronize()
+    return proof, time.perf_counter() - t0
+
+
+def _device_profile(kp, primary, aux) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = _prove(kp, primary, aux)
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels.append({"name": evt.key[:80], "calls": evt.count,
+                            "device_ms": us / 1e3})
+    kernels.sort(key=lambda k: -k["device_ms"])
+    busy = sum(k["device_ms"] for k in kernels) / 1e3
+    return {"wall_s_profiled": wall, "device_busy_s": busy,
+            "device_kernel_launches": sum(k["calls"] for k in kernels),
+            "top_kernels": kernels[:15]}
+
+
+def _host_profile(kp, primary, aux) -> dict:
+    prof = cProfile.Profile()
+    prof.enable()
+    _, wall = _prove(kp, primary, aux)
+    prof.disable()
+    stats = pstats.Stats(prof)
+    rows = []
+    for (path, line, name), (_, ncalls, tottime, cumtime, _) \
+            in stats.stats.items():
+        rows.append({"function": f"{path.rsplit('/', 1)[-1]}:{line}:{name}",
+                     "calls": ncalls, "self_s": tottime, "cum_s": cumtime})
+    by_cum = sorted(rows, key=lambda r: -r["cum_s"])[:30]
+    by_self = sorted(rows, key=lambda r: -r["self_s"])[:20]
+    return {"wall_s_profiled": wall, "by_cumulative": by_cum,
+            "by_self": by_self}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_prove: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+    curve = CV.ALT_BN128
+    cs, primary, aux = product_chain(curve.fr.p, 1 << LOG2_CONSTRAINTS)
+    t0 = time.perf_counter()
+    kp = G16.generate(curve, cs, toxic=TOXIC)
+    keygen = time.perf_counter() - t0
+    _prove(kp, primary, aux)                               # warm-up
+    proof, wall = _prove(kp, primary, aux)
+    phases = dict(G16.LAST_PROVE_SECONDS)
+    if not G16.verify(kp.vk, primary, proof):
+        raise AssertionError("the proof was rejected")
+
+    device = _device_profile(kp, primary, aux)
+    device["idle_share_profiled"] = \
+        1 - device["device_busy_s"] / device["wall_s_profiled"]
+    device["idle_share_against_plain_wall"] = \
+        1 - device["device_busy_s"] / wall
+    result = {"card": card, "log2_constraints": LOG2_CONSTRAINTS,
+              "keygen_s": keygen, "prove_wall_s": wall, "phases_s": phases,
+              "device": device, "host": _host_profile(kp, primary, aux)}
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,121 @@
+"""The port's limb arithmetic (`crypto3_zk_tpu_torch.ops.limbs`) against the
+JAX package's, on the CPU, bit for bit (tolerance 0: every value is an
+integer). Inputs are made with numpy from a fixed seed and given to both."""
+import numpy as np
+import pytest
+import torch
+
+from crypto3_zk_tpu.fields import params as P
+from crypto3_zk_tpu.ops import limbs as L
+from crypto3_zk_tpu.ops import pallas_field as PF
+from crypto3_zk_tpu_torch import convert as CONV
+from crypto3_zk_tpu_torch.fields import params as TP
+from crypto3_zk_tpu_torch.ops import hopper_field as HF
+from crypto3_zk_tpu_torch.ops import limbs as TL
+
+FIELDS = ["ALT_BN128_FR", "ALT_BN128_FQ", "BLS12_381_FQ"]
+
+
+def _values(p, n, seed):
+    rng = np.random.default_rng(seed)
+    nbytes = (p.bit_length() + 7) // 8 + 8
+    vals = [int.from_bytes(rng.bytes(nbytes), "little") % p for _ in range(n)]
+    vals[:3] = [0, 1, p - 1]
+    return vals
+
+
+def _pair(name, n, seed):
+    """The same Montgomery limb array as a JAX array and as a port tensor."""
+    fs, tfs = getattr(P, name), getattr(TP, name)
+    arr = np.asarray(L.encode(fs, _values(fs.p, n, seed)))
+    return fs, tfs, arr, CONV.limbs_from_numpy(tfs, arr, device="cpu")
+
+
+def _same(ref, got):
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(ref).astype(np.int64),
+                                  got.numpy().astype(np.int64))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+@pytest.mark.parametrize("op", ["add", "sub", "mont_mul"])
+def test_binary_ops_match_reference(name, op):
+    fs, tfs, a, ta = _pair(name, 64, 1)
+    _, _, b, tb = _pair(name, 64, 2)
+    b, tb = b[:, ::-1].copy(), tb.flip(1)      # edges meet random values too
+    for x, y, tx, ty in ((a, b, ta, tb), (a, a, ta, ta), (b, a, tb, ta)):
+        _same(getattr(L, op)(fs, x, y), getattr(TL, op)(tfs, tx, ty))
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_unary_ops_match_reference(name):
+    fs, tfs, a, ta = _pair(name, 32, 3)
+    _same(L.mont_sqr(fs, a), TL.mont_sqr(tfs, ta))
+    _same(L.neg(fs, a), TL.neg(tfs, ta))
+    _same(L.double(fs, a), TL.double(tfs, ta))
+    _same(L.to_mont(fs, a), TL.to_mont(tfs, ta))
+    _same(L.from_mont(fs, a), TL.from_mont(tfs, ta))
+    assert TL.decode(tfs, ta) == L.decode(fs, a)
+    _same(L.encode(fs, [5, 7]), TL.encode(tfs, [5, 7], "cpu"))
+    _same(L.const_mont(fs, 9, (3,)),
+          TL.const_mont(tfs, 9, (3,), "cpu").contiguous())
+    _same(L.powers(fs, 3, 8), TL.powers(tfs, 3, 8, "cpu"))
+    np.testing.assert_array_equal(np.asarray(L.is_zero(fs, a)),
+                                  TL.is_zero(tfs, ta).numpy())
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_inverse_matches_reference(name):
+    fs, tfs, a, ta = _pair(name, 8, 4)
+    got = TL.inv(tfs, ta)
+    _same(L.inv(fs, a), got)
+    p = fs.p
+    assert TL.decode(tfs, got) == [pow(v, -1, p) if v else 0
+                                   for v in L.decode(fs, a)]
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_batch_inverse_matches_reference(name):
+    fs, tfs, a, ta = _pair(name, 24, 5)
+    a3, t3 = a.reshape(fs.nl, 3, 8), ta.reshape(fs.nl, 3, 8)
+    _same(L.batch_inverse(fs, a3, axis=-1), TL.batch_inverse(tfs, t3, axis=-1))
+    _same(L.batch_inverse(fs, a3, axis=1), TL.batch_inverse(tfs, t3, axis=1))
+
+
+@pytest.mark.parametrize("name", ["ALT_BN128_FQ", "BLS12_381_FQ"])
+def test_mont_mul_plain_matches_pallas_kernel(name):
+    """Kernel 1's plain version against the TPU kernel in interpret mode at
+    N = 256. The 24-digit field is held against `limbs.mont_mul` instead,
+    which computes the same product: compiling the Pallas kernel for it in
+    interpret mode takes minutes on a cold cache."""
+    fs, tfs, a, ta = _pair(name, 256, 6)
+    _, _, b, tb = _pair(name, 256, 7)
+    b, tb = b[:, ::-1].copy(), tb.flip(1)
+    if fs.nl == 16:
+        ref = PF.mont_mul_pallas(fs, a, b, interpret=True)
+    else:
+        ref = L.mont_mul(fs, a, b)
+    _same(ref, HF.mont_mul_plain(tfs, ta, tb))
+    _same(ref, HF.mont_mul_hopper(tfs, ta, tb))
+
+
+def test_mont_mul_broadcasts_like_reference():
+    fs, tfs, a, ta = _pair("ALT_BN128_FR", 12, 8)
+    c = L.const_mont(fs, 12345, (1, 1))
+    tc = TL.const_mont(tfs, 12345, (1, 1), "cpu")
+    _same(L.mont_mul(fs, a.reshape(fs.nl, 3, 4), c),
+          TL.mont_mul(tfs, ta.reshape(fs.nl, 3, 4), tc))
+
+
+def test_odd_digit_count_is_refused_by_the_kernels():
+    from crypto3_zk_tpu_torch import kernels as K
+    with pytest.raises(ValueError):
+        K.field_consts(TP.MNT4_FR)
+
+
+def test_default_device_is_the_card_and_never_the_cpu():
+    if torch.cuda.is_available():
+        assert TL.zeros(TP.ALT_BN128_FR, (2,)).is_cuda
+    else:
+        with pytest.raises(RuntimeError):
+            TL.zeros(TP.ALT_BN128_FR, (2,))

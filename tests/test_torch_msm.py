@@ -1,0 +1,190 @@
+"""The port's MSM modules (`ops.hopper_msm`, `ops.msm_affine`, `ops.msm`,
+`ops.curve`) on the CPU: the inversion kernels' plain versions against the
+TPU kernels in interpret mode, and the MSM's output point against the JAX
+package's host oracle. Everything is an integer: equality is exact."""
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from crypto3_zk_tpu.fields import curves as CV
+from crypto3_zk_tpu.ops import limbs as L
+from crypto3_zk_tpu.ops import pallas_msm as PM
+from crypto3_zk_tpu.ops.msm import msm_host
+from crypto3_zk_tpu_torch import convert as CONV
+from crypto3_zk_tpu_torch.fields import curves as TCV
+from crypto3_zk_tpu_torch.ops import curve as TCRV
+from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+from crypto3_zk_tpu_torch.ops import limbs as TL
+from crypto3_zk_tpu_torch.ops import msm as TM
+from crypto3_zk_tpu_torch.ops import msm_affine as TMA
+
+CURVE, TCURVE = CV.ALT_BN128, TCV.ALT_BN128
+
+
+def _same(ref, got):
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np.asarray(ref).astype(np.int64),
+                                  got.numpy().astype(np.int64))
+
+
+def test_inversion_kernels_plain_versions_match_pallas_kernels():
+    """Kernels 3 and 4 at C = 4, K = 8. The TPU kernels take x as
+    (NL, C, K) and give f, g as (K, NL, C); the port's layout is (NL, K, C)
+    throughout, so the comparison transposes."""
+    fs, tfs = CURVE.fq, TCURVE.fq
+    rng = np.random.default_rng(3)
+    C, K = 4, 8
+    vals = [int.from_bytes(rng.bytes(40), "little") % (fs.p - 1) + 1
+            for _ in range(C * K)]
+    xr = L.encode(fs, vals).reshape(fs.nl, C, K)
+    f, g, tot = PM.inv_scans_pallas(fs, xr, L.ones_mont(fs, (1,)),
+                                    interpret=True)
+    out = PM.mul3_bcast_pallas(fs, f, g, tot, interpret=True)   # (NL, C, K)
+
+    tx = CONV.limbs_from_numpy(tfs, np.asarray(xr), "cpu") \
+        .transpose(1, 2).contiguous()                           # (NL, K, C)
+    for scans in (HM.inv_scans_plain, HM.inv_scans_hopper):
+        tf, tg, ttot = scans(tfs, tx)
+        _same(np.transpose(np.asarray(f), (1, 0, 2)), tf)
+        _same(np.transpose(np.asarray(g), (1, 0, 2)), tg)
+        _same(tot, ttot)
+    for mul3 in (HM.mul3_bcast_plain, HM.mul3_bcast_hopper):
+        _same(np.transpose(np.asarray(out), (0, 2, 1)),
+              mul3(tfs, tf, tg, ttot))
+
+
+@pytest.mark.parametrize("size", [1, 64, 65, 200])
+def test_chunked_batch_inverse(size):
+    tfs = TCURVE.fq
+    rng = random.Random(size)
+    vals = [rng.randrange(1, tfs.p) for _ in range(size)]
+    vals[0] = tfs.p - 1
+    inv = TMA._batch_inverse_chunked(tfs, TL.encode(tfs, vals, "cpu"))
+    assert TL.decode(tfs, inv) == [pow(v, -1, tfs.p) for v in vals]
+
+
+def test_jacobian_formulas_match_host_curve():
+    ops = TCRV.FqOps(TCURVE.fq, "cpu")
+    g = CURVE.g1
+    pts = [CV.g1_mul(CURVE, g, k) for k in (1, 2, 3, 5, 5, 7)]
+    other = [CV.g1_mul(CURVE, g, k) for k in (4, 2, 9, 5, 0, 1)]
+    other[4] = CV.g1_neg(CURVE, pts[4])
+
+    def enc(ps):
+        return (ops.encode([q[0] for q in ps]), ops.encode([q[1] for q in ps]),
+                ops.ones((len(ps),)))
+
+    got = TCRV.to_affine_host(ops, TCRV.jac_add(ops, enc(pts), enc(other)))
+    assert got == [CV.g1_add(CURVE, a, b) for a, b in zip(pts, other)]
+    got = TCRV.to_affine_host(ops, TCRV.jac_double(ops, enc(pts)))
+    assert got == [CV.g1_add(CURVE, a, a) for a in pts]
+    inf = TCRV.inf_point(ops, (len(pts),))
+    assert TCRV.to_affine_host(ops, TCRV.jac_add(ops, inf, enc(pts))) == pts
+    assert TCRV.to_affine_host(ops, TCRV.jac_neg(ops, enc(pts))) == \
+        [CV.g1_neg(CURVE, a) for a in pts]
+
+
+def _fixture(group, n, seed):
+    rng = random.Random(seed)
+    gen = CURVE.g1 if group == "g1" else CURVE.g2
+    add = CV.g1_add if group == "g1" else CV.g2_add
+    neg = CV.g1_neg if group == "g1" else CV.g2_neg
+    pool, acc = [], None
+    for _ in range(24):
+        acc = add(CURVE, acc, gen)
+        pool.append(acc)
+    pts = [pool[rng.randrange(24)] for _ in range(n)]
+    sc = [rng.randrange(CURVE.fr.p) for _ in range(n)]
+    sc[:3] = [0, 1, CURVE.fr.p - 1]
+    pts[5] = None                                    # an infinity base
+    pts[8] = pts[7]                                  # a repeated point ...
+    pts[9] = neg(CURVE, pts[7])                      # ... and its negation
+    sc[7] = sc[8] = sc[9]                            # in the same buckets
+    return pts, sc
+
+
+def _oracle(pts, sc, group):
+    live = [(q, s) for q, s in zip(pts, sc) if q is not None]
+    return msm_host(CURVE, [q for q, _ in live], [s for _, s in live],
+                    group=group)
+
+
+@pytest.mark.parametrize("group,window_bits,n", [("g1", 4, 100),
+                                                 ("g1", 7, 40),
+                                                 ("g2", 5, 40)])
+def test_msm_bases_run_matches_host_oracle(group, window_bits, n):
+    pts, sc = _fixture(group, n, 0x51 + window_bits)
+    bases = TMA.MSMBases(TCURVE, pts, group, window_bits=window_bits,
+                         device="cpu")
+    assert bases.run(sc) == _oracle(pts, sc, group)
+    # a second run on the same bases: all-equal scalars put every base of a
+    # window into one bucket, the deepest halving there is
+    assert bases.run([12345] * n) == _oracle(pts, [12345] * n, group)
+
+
+def test_msm_affine_one_shot_and_edge_sizes():
+    pts, sc = _fixture("g1", 12, 3)
+    bases = TMA.MSMBases(TCURVE, pts, "g1", window_bits=3, device="cpu")
+    assert bases.run(sc[:10]) == _oracle(pts[:10], sc[:10], "g1")
+    assert bases.run([0] * 12) is None
+    assert TMA.msm_affine(TCURVE, [None, None], [5, 6], window_bits=3,
+                          device="cpu") is None
+    assert TMA.msm_affine(TCURVE, [CURVE.g1], [CURVE.fr.p - 1],
+                          window_bits=8, device="cpu") \
+        == CV.g1_neg(CURVE, CURVE.g1)
+
+
+def test_msm_refuses_curves_with_nonzero_a():
+    from crypto3_zk_tpu_torch.fields import mnt as TMNT
+    with pytest.raises(ValueError):
+        TMA.MSMBases(TMNT.MNT4, [TMNT.MNT4.g1], "g1", device="cpu")
+    with pytest.raises(ValueError):
+        TM.fixed_base_exp_batch(TMNT.MNT4, TMNT.MNT4.g1, [1, 2], device="cpu")
+
+
+def test_signed_digits_and_pass_counts():
+    fr = TCURVE.fr
+    c = 5
+    sc = [0, 1, fr.p - 1, 31, 16, 48] + [random.Random(4).randrange(fr.p)
+                                         for _ in range(20)]
+    w = TMA.n_windows(fr.bits, c)
+    sd = TMA._signed_digits_np(
+        TMA.window_digits_np(TL.pack_ints(fr, sc), c, w), c)
+    assert np.abs(sd).max() <= 1 << (c - 1)
+    assert [sum(int(sd[j, i]) << (c * j) for j in range(w))
+            for i in range(len(sc))] == sc
+    eq = TMA._signed_digits_np(
+        TMA.window_digits_np(TL.pack_ints(fr, [12345] * 64), c, w), c)
+    assert TMA._pass_counts(eq, 1, w, c) == [6]
+    one = TMA._signed_digits_np(
+        TMA.window_digits_np(TL.pack_ints(fr, [7]), c, w), c)
+    assert TMA._pass_counts(one, 1, w, c) == [0]
+    assert TMA._pass_counts(np.zeros((w, 32), np.int32), 1, w, c) == [0]
+    # the default width, 16 bits, reads the digits off the limbs directly
+    w16 = TMA.n_windows(fr.bits, 16)
+    sd16 = TMA._signed_digits_np(
+        TMA.window_digits_np(TL.pack_ints(fr, sc), 16, w16), 16)
+    assert [sum(int(sd16[j, i]) << (16 * j) for j in range(w16))
+            for i in range(len(sc))] == sc
+    np.testing.assert_array_equal(
+        TM._digits_host(fr, sc, 16, fr.nl), TL.pack_ints(fr, sc))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_fixed_base_exp_batch_matches_host_multiples(group):
+    gen = CURVE.g1 if group == "g1" else CURVE.g2
+    mul = CV.g1_mul if group == "g1" else CV.g2_mul
+    ks = [0, 1, 2, CURVE.fr.p - 1, 0xDEADBEEFCAFE, CURVE.fr.p + 5]
+    got = TM.fixed_base_exp_batch(TCURVE, gen, ks, c=4, group=group,
+                                  device="cpu")
+    assert got == [mul(CURVE, gen, k % CURVE.fr.p) for k in ks]
+    assert got[0] is None
+
+
+def test_msm_host_matches_reference():
+    pts, sc = _fixture("g1", 12, 9)
+    live = [(q, s) for q, s in zip(pts, sc) if q is not None]
+    assert TM.msm_host(TCURVE, [q for q, _ in live], [s for _, s in live]) \
+        == _oracle(pts, sc, "g1")
