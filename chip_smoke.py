@@ -13,9 +13,10 @@ result line) without a CUDA device, when a kernel does not build, launch or
 agree, when a kernel of the path was never launched by `prove`, or when the
 verifier's answers are wrong.
 
-Output: one line per phase with its seconds; then, on a line of its own, a
-JSON object {"kernels": [...]} with every kernel's numbers; then the card's
-name and power limit; then the result line.
+Output: one line per phase with its seconds; then the times of one whole 2^17
+transform as a JSON object; then, on a line of its own, a JSON object
+{"kernels": [...]} with every kernel's numbers; then the card's name and
+power limit; then the result line.
 
 `--kernels-only` stops after the kernel checks, for a quick look at a kernel
 edit: it drives no main path, so its `kernels` line carries no `launches`
@@ -159,7 +160,7 @@ def check_kernels(torch):
         return err
 
     def measure(name, source, replaces, fs, kernel, plain, make, bytes_moved,
-                ops, per_set_bytes, extra_err=0):
+                ops, per_set_bytes, extra_err=0, latency_bound_ms=None):
         n_sets = max(1, -(-FLUSH_BYTES // per_set_bytes))
         sets = [make() for _ in range(n_sets)]
         err = max(extra_err, compare(name, fs, kernel, plain, sets[0]))
@@ -169,6 +170,9 @@ def check_kernels(torch):
         # caller waits for, the host's share included
         plain_ms = time_ms(torch, lambda i: plain(fs, *sets[i]), n_sets, 2)
         bound_ms, bound_by = bound(bytes_moved, ops)
+        if latency_bound_ms is not None:
+            # a chain of dependent operations: no rate bounds it
+            bound_ms, bound_by = latency_bound_ms, "operations"
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -176,6 +180,9 @@ def check_kernels(torch):
                      "library_ms": None,
                      "shape": [list(t.shape) for t in sets[0]
                                if hasattr(t, "shape")]})
+        if latency_bound_ms is not None:
+            rows[-1]["bound_note"] = ("latency: dependent products in "
+                                      "sequence x the time of one")
         log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
             f"{bound_ms:.4f} ms by {bound_by}")
 
@@ -205,18 +212,54 @@ def check_kernels(torch):
                      rand_field(torch, fq, (n,), gen)),
             bytes_moved=3 * fq.nl * 4 * n, ops=mont_ops(fq.nl) * n,
             per_set_bytes=2 * fq.nl * 4 * n, extra_err=err)
+    mont_mul_launches = launch_counts()["mont_mul"]
 
-    # kernel 2: row NTT, both passes of the 2^17 four-step, both directions
+    # kernel 2: row NTT at every row length, few and many rows, both
+    # directions
     err = 0
-    for m_rows, b in ((512, 256), (256, 512)):
-        for inverse in (False, True):
-            err = max(err, compare(
-                "ntt_rows", fr, HF.ntt_rows_hopper, HF.ntt_rows_plain,
-                (rand_field(torch, fr, (m_rows, b), gen), inverse)))
+    for log_b in range(1, 11):
+        for m_rows in (1, 3, 256):
+            for inverse in (False, True):
+                err = max(err, compare(
+                    "ntt_rows", fr, HF.ntt_rows_hopper, HF.ntt_rows_plain,
+                    (rand_field(torch, fr, (m_rows, 1 << log_b), gen),
+                     inverse)))
     # the 12-word instance: bls12-381 Fq has roots of unity of order 2 only
     err = max(err, compare("ntt_rows", bls, HF.ntt_rows_hopper,
                            HF.ntt_rows_plain,
                            (rand_field(torch, bls, (4096, 2), gen), False)))
+    # strided input (columns of a matrix), each kind of multiplier, and a
+    # strided output; the output view is compared after the call
+    cols = rand_field(torch, fr, (256, 512), gen).transpose(1, 2)
+    table = rand_field(torch, fr, (512, 256), gen)
+    for mul in (None, table, rand_field(torch, fr, (1, 1), gen),
+                table[:, :, :1], table[:, :1, :]):
+        for inverse in (False, True):
+            err = max(err, compare(
+                "ntt_rows(columns, multiplier)", fr, HF.ntt_rows_hopper,
+                HF.ntt_rows_plain, (cols, inverse, mul)))
+        flat = torch.empty((fr.nl, 512 * 256), dtype=torch.int32,
+                           device="cuda")
+        view = flat.reshape(fr.nl, 256, 512).transpose(1, 2)
+        got = HF.ntt_rows_hopper(fr, cols, False, mul, view)
+        torch.cuda.synchronize()
+        if got is not view or max_abs_err(
+                torch, view, HF.ntt_rows_plain(fr, cols, False, mul)) != 0:
+            raise AssertionError("ntt_rows into a strided view disagrees "
+                                 "with its plain version")
+    log("  ntt_rows into strided views: max_abs_err 0")
+    del cols, table, flat, view, got
+    # whole transforms through the four-step's two launches
+    for log_n in (11, 17):
+        for inverse in (False, True):
+            before = HF.LAUNCHES["ntt_rows"]
+            err = max(err, compare(
+                "ntt_hopper", fr, HF.ntt_hopper, HF.ntt_plain,
+                (rand_field(torch, fr, (1 << log_n,), gen), inverse)))
+            if launch_counts()["ntt_rows"] - before != 2 \
+                    or launch_counts()["mont_mul"] != mont_mul_launches:
+                raise AssertionError("a four-step transform is not two "
+                                     "launches of kernel 2")
     m_rows, b = 256, 512
     butterflies = m_rows * (b // 2) * 9
     measure("ntt_rows", "crypto3_zk_tpu_torch/csrc/ntt_rows.cu",
@@ -227,12 +270,34 @@ def check_kernels(torch):
             ops=butterflies * (mont_ops(fr.nl) + 2 * fr.nl),
             per_set_bytes=fr.nl * 4 * m_rows * b, extra_err=err)
 
-    # kernels 3 and 4: the scans of the batched inversion at the width of a
-    # 2^21-lane halving pass
+    # one whole transform at the prove's domain size: device time with the
+    # stream held, and what a caller waits for, the host's share included
+    n_big = 1 << 17
+    sets = [rand_field(torch, fr, (n_big,), gen) for _ in range(8)]
+    transforms = {}
+    for inverse in (False, True):
+        name = "inverse" if inverse else "forward"
+        transforms[name] = time_ms(
+            torch, lambda i: HF.ntt_hopper(fr, sets[i], inverse), len(sets),
+            20, queued=True)
+        transforms[name + "_with_host"] = time_ms(
+            torch, lambda i: HF.ntt_hopper(fr, sets[i], inverse), len(sets),
+            20)
+    log("  ntt_hopper 2^17: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in transforms.items()))
+    del sets
+
+    # kernels 3 and 4: the scans of the batched inversion, ragged and tiny
+    # shapes first, then timed at the width of a 2^21-lane halving pass
+    err3 = 0
+    for fs in (fq, bls):
+        for k in (1, 2, 17, 64):
+            for c in (1, 7, 8, 512, (1 << 15) + 3):
+                err3 = max(err3, compare(
+                    "inv_scans", fs, HM.inv_scans_hopper, HM.inv_scans_plain,
+                    (nonzero(torch, rand_field(torch, fs, (k, c), gen)),)))
     k, c = 64, 1 << 15
     scan_bytes = fq.nl * 4 * (3 * k * c + c)
-    err3 = compare("inv_scans", bls, HM.inv_scans_hopper, HM.inv_scans_plain,
-                   (nonzero(torch, rand_field(torch, bls, (k, 256), gen)),))
     err4 = compare("mul3", bls, HM.mul3_bcast_hopper, HM.mul3_bcast_plain,
                    (rand_field(torch, bls, (k, 256), gen),
                     rand_field(torch, bls, (k, 256), gen),
@@ -251,7 +316,35 @@ def check_kernels(torch):
                      rand_field(torch, fq, (c,), gen)),
             bytes_moved=scan_bytes, ops=2 * k * c * mont_ops(fq.nl),
             per_set_bytes=2 * fq.nl * 4 * k * c, extra_err=err4)
-    return rows
+
+    # the tail of the batched inversion: one launch inverts a small batch.
+    # Its bound is a latency: the products that follow one another in the
+    # launch, times the time of one dependent product, which is read off a
+    # launch on a single element (nothing but the chain runs there).
+    err5 = 0
+    for fs in (fq, bls):
+        for size in (1, 2, 63, 512, HM.INV_TAIL_MAX):
+            err5 = max(err5, compare(
+                "inv_tail", fs, HM.batch_inverse_small_hopper,
+                HM.batch_inverse_small_plain,
+                (nonzero(torch, rand_field(torch, fs, (size,), gen)),)))
+    size = 512
+    single = nonzero(torch, rand_field(torch, fq, (1,), gen))
+    chain_ms = time_ms(torch,
+                       lambda i: HM.batch_inverse_small_hopper(fq, single),
+                       1, 20, queued=True)
+    product_ms = chain_ms / HM.tail_products_in_sequence(fq, 1)
+    log(f"  inv_tail on one element: {chain_ms:.4f} ms, "
+        f"{product_ms * 1e3:.3f} us a dependent product")
+    measure("inv_tail", "crypto3_zk_tpu_torch/csrc/inv_scans.cu",
+            "crypto3_zk_tpu/ops/pallas_msm.py:80", fq,
+            HM.batch_inverse_small_hopper, HM.batch_inverse_small_plain,
+            lambda: (nonzero(torch, rand_field(torch, fq, (size,), gen)),),
+            bytes_moved=2 * fq.nl * 4 * size, ops=0,
+            per_set_bytes=FLUSH_BYTES, extra_err=err5,
+            latency_bound_ms=product_ms
+            * HM.tail_products_in_sequence(fq, size))
+    return rows, transforms
 
 
 def launch_counts() -> dict:
@@ -263,7 +356,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
-    for counts in (HF.LAUNCHES, HM.LAUNCHES):
+    for counts in (HF.LAUNCHES, HM.LAUNCHES, HM.ELEMENTS):
         for name in counts:
             counts[name] = 0
 
@@ -367,6 +460,9 @@ def main_path(torch) -> dict:
         log(f"prove ({attempt}): {dt:.2f} s [{phases}] peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     log(f"kernel launches in the second prove: {counts}")
+    from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    log(f"field elements those launches ran on: {HM.ELEMENTS}, a launch: "
+        + str({k: v // max(counts[k], 1) for k, v in HM.ELEMENTS.items()}))
     idle = [k for k, v in counts.items() if v <= 0]
     if idle:
         raise AssertionError(f"prove never launched {idle}")
@@ -406,7 +502,7 @@ def main(argv=None) -> int:
     log(f"build: {secs:.2f} s ({len(K.SOURCES)} sources, nvcc sm_90a)")
 
     t0 = time.perf_counter()
-    rows = check_kernels(torch)
+    rows, transforms = check_kernels(torch)
     log(f"kernels: {time.perf_counter() - t0:.2f} s, launches so far "
         f"{launch_counts()}")
 
@@ -423,6 +519,7 @@ def main(argv=None) -> int:
         counts = main_path(torch)
         for row in rows:
             row["launches"] = counts[row["name"]]
+    log(json.dumps({"ntt_2p17_ms": transforms}))
     log(json.dumps({"kernels": rows}))
     log(f"total: {time.perf_counter() - t_all:.2f} s")
     log(card)

@@ -34,8 +34,10 @@ _ELEMENTWISE = [_I, _P, _P, _P, _P, _LL, _LL, _LL, _P, _P, _P]
 SOURCES: dict[str, dict[str, list]] = {
     "mont_mul.cu": {"zk_mont_mul": _ELEMENTWISE, "zk_add": _ELEMENTWISE,
                     "zk_sub": _ELEMENTWISE},
-    "ntt_rows.cu": {"zk_ntt_rows": [_I, _P, _P, _P, _P, _LL, _I, _P]},
-    "inv_scans.cu": {"zk_inv_scans": [_I, _P, _P, _P, _P, _P, _I, _LL, _P]},
+    "ntt_rows.cu": {"zk_ntt_rows": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL,
+                                    _I, _I, _I, _P]},
+    "inv_scans.cu": {"zk_inv_scans": [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
+                     "zk_inv_tail": [_I, _P, _P, _P, _I, _P]},
     "mul3.cu": {"zk_mul3": [_I, _P, _P, _P, _P, _P, _I, _LL, _P]},
 }
 
@@ -138,6 +140,10 @@ def field_consts(fs):
         nw = fs.nl // 2
         if nw not in (8, 12):
             raise ValueError(f"{fs.name}: no kernel instance for {nw} words")
+        if fs.p.bit_length() > 32 * nw - 1:
+            raise ValueError(
+                f"{fs.name}: the kernels' carry chains need the top bit of "
+                f"the top word free, and p has {fs.p.bit_length()} bits")
         mask = (1 << 32) - 1
         words = [(fs.p >> (32 * j)) & mask for j in range(nw)]
         words += [(fs.R_mod_p >> (32 * j)) & mask for j in range(nw)]

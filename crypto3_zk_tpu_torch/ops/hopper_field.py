@@ -9,16 +9,19 @@ Counterpart of `ops/pallas_field.py` of the JAX package.
   multiply-adds (NW = NL/2): by the card's published peaks the bytes are
   the bound, so each operand is read once, coalesced, and nothing else
   touches memory.
-- Kernel 2, `ntt_rows_hopper(fs, x, inverse)`: batched radix-2 NTTs of
-  length B <= 2^10 along the last axis, all stages in shared memory.
-  Replaces `_ntt_rows_pallas` / `_ntt_rows_kernel`. Source:
-  `csrc/ntt_rows.cu`. One block per row. A row is read and written once
-  (8*NL bytes per element) for (log B)/2 butterflies per element; up to
-  B = 2^10 the bytes stay the bound by the published peaks, which is why
-  all stages run between one load and one store.
-- `ntt_hopper(fs, x, inverse)`: the four-step transform around kernel 2
-  (two row passes, a twiddle multiply through kernel 1 and transposes
-  between them), as `ntt_pallas` is around the Pallas row kernel.
+- Kernel 2, `ntt_rows_hopper(fs, x, inverse, mul, out)`: batched radix-2
+  NTTs of length B <= 2^10 along the last axis of a strided (NL, M, B) view,
+  optionally times a multiplier, optionally into a strided view. Replaces
+  `_ntt_rows_pallas` / `_ntt_rows_kernel`. Source: `csrc/ntt_rows.cu`. A row
+  is read and written once (8*NL bytes per element) for (log B)/2
+  butterflies per element; the bytes are few and the time goes to the
+  products and to every trip through shared memory, so a thread keeps 4
+  elements in registers for 2 stages between barriers, the twiddles are
+  staged once per block, and a block takes several rows when they are short.
+- `ntt_hopper(fs, x, inverse)`: the four-step transform as two launches of
+  kernel 2 and nothing else: the first reads columns and multiplies by
+  w_N^(c*k2) before its store, the second reads and writes columns and, on
+  the inverse, multiplies by 1/N.
 
 Each wrapper runs its plain PyTorch version only for a tensor that lies on
 the CPU. On a CUDA tensor it launches the kernel or raises. `LAUNCHES`
@@ -236,10 +239,14 @@ def bitrev_perm(log_n: int) -> np.ndarray:
     return rev
 
 
-def ntt_rows_plain(fs: FieldSpec, x: torch.Tensor, inverse: bool):
+def ntt_rows_plain(fs: FieldSpec, x: torch.Tensor, inverse: bool,
+                   mul: torch.Tensor | None = None,
+                   out: torch.Tensor | None = None):
     """The radix-2 decimation-in-time stage loop along the last axis:
     bit-reverse, then log B butterfly layers of one Montgomery multiply, one
-    add and one subtract each. x: (NL, *batch, B)."""
+    add and one subtract each. x: (NL, *batch, B), any strides. `mul`
+    (broadcasting against x) multiplies the result; `out`, a view of x's
+    shape, receives it."""
     b = x.shape[-1]
     log_b = b.bit_length() - 1
     tw = _twiddles(fs, log_b, inverse, str(x.device))
@@ -260,30 +267,108 @@ def ntt_rows_plain(fs: FieldSpec, x: torch.Tensor, inverse: bool):
         x = torch.cat([lo.reshape(lead + (b // m, m // 2)),
                        hi.reshape(lead + (b // m, m // 2))],
                       dim=-1).reshape(lead + (b,))
-    return x
+    if mul is not None:
+        x = mont_mul_plain(fs, x, mul)
+    if out is None:
+        return x
+    out.copy_(x)
+    return out
 
 
-def ntt_rows_hopper(fs: FieldSpec, x: torch.Tensor,
-                    inverse: bool) -> torch.Tensor:
-    """Kernel 2. x: (NL, M, B) int32 digit planes in natural order, B a
-    power of two with 2 <= B <= 2^10. Returns the unscaled transform of
-    every row (no 1/B factor on the inverse), natural order."""
+@functools.lru_cache(maxsize=None)
+def _twiddle_words(fs: FieldSpec, log_b: int, inverse: bool, device: str):
+    """The table kernel 2 stages in shared memory: (NW, B/2) int32, digit
+    pairs of w^j fused to 32-bit words, slot m holding j = the bit reversal
+    of m over log B - 1 bits (stage t then reads the slots below 2^(t-1))."""
+    d = _twiddles_np(fs, log_b, inverse).astype(np.uint32)
+    words = d[0::2] | (d[1::2] << 16)
+    words = words[:, bitrev_perm(log_b - 1)]
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)) \
+        .to(device)
+
+
+_ROWS_TILE = 2048         # elements a block of kernel 2 takes, at most
+_ROWS_MAX_THREADS = 256
+_ROWS_MIN_BLOCKS = 128    # rows are grouped only while this many blocks remain
+
+
+def _row_strides(v: torch.Tensor):
+    """{limb, row, element} strides of an (NL, M, B) view, in int32s."""
+    return (ctypes.c_longlong * 3)(*v.stride())
+
+
+def _rows_launch(fs: FieldSpec, x: torch.Tensor, mul, out):
+    """What kernel 2 is given for an (NL, M, B) view x, a multiplier and an
+    output view, and the refusal of what it does not take. Pure shape and
+    stride work, the same on any device. Returns (rows, log_b, log_g,
+    threads, shared-memory bytes, strides of x, multiplier view or None,
+    strides of out or None): a block takes 2^log_g neighbouring rows, as
+    many as fit a tile of 2048 elements while at least 128 blocks remain,
+    and one thread for every 4 elements, 32 to 256 of them."""
+    if x.dim() != 3 or x.shape[0] != fs.nl or x.dtype != torch.int32:
+        raise TypeError("ntt_rows: x must be (NL, M, B) int32 digit planes")
     nl, m_rows, b = x.shape
     log_b = b.bit_length() - 1
     if 1 << log_b != b or not 1 <= log_b <= _MAX_ROW_LOG:
         raise ValueError(f"row length {b} is not a power of two in "
                          f"[2, 2^{_MAX_ROW_LOG}]")
+    if m_rows < 1:
+        raise ValueError("ntt_rows: no rows")
+    mul_view = out_strides = None
+    if mul is not None:
+        if mul.dtype != torch.int32 or mul.dim() != 3 or mul.shape[0] != nl \
+                or any(s not in (1, t) for s, t in zip(mul.shape, x.shape)):
+            raise ValueError(f"ntt_rows: a multiplier of shape "
+                             f"{tuple(mul.shape)} does not broadcast over "
+                             f"{tuple(x.shape)}")
+        mul_view = mul.expand(x.shape)
+    if out is not None:
+        if out.shape != x.shape or out.dtype != torch.int32:
+            raise ValueError("ntt_rows: out must have x's shape and type")
+        if 0 in out.stride():
+            raise ValueError("ntt_rows: out overlaps itself (a stride is 0)")
+        if out.untyped_storage().data_ptr() == x.untyped_storage().data_ptr():
+            raise ValueError("ntt_rows: out shares x's storage; the "
+                             "transform is not done in place")
+        out_strides = _row_strides(out)
+    log_g = 0
+    while (b << (log_g + 1)) <= _ROWS_TILE \
+            and (m_rows >> (log_g + 1)) >= _ROWS_MIN_BLOCKS:
+        log_g += 1
+    threads = min(_ROWS_MAX_THREADS, max(32, (b << log_g) >> 2))
+    smem = (nl // 2) * ((b << log_g) + b // 2) * 4
+    return (m_rows, log_b, log_g, threads, smem, _row_strides(x), mul_view,
+            out_strides)
+
+
+def ntt_rows_hopper(fs: FieldSpec, x: torch.Tensor, inverse: bool,
+                    mul: torch.Tensor | None = None,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel 2. x: (NL, M, B) int32 digit planes in natural order, any
+    strides, B a power of two with 2 <= B <= 2^10. Computes the unscaled
+    transform of every row (no 1/B factor on the inverse), natural order,
+    times `mul` where given ((NL, M, B), or 1 on an axis it broadcasts
+    over). The result goes to `out`, a view of x's shape with any nonzero
+    strides that does not share x's storage, or to a new contiguous
+    tensor."""
+    (m_rows, log_b, log_g, threads, _, x_strides, mul_view,
+     out_strides) = _rows_launch(fs, x, mul, out)
     if not x.is_cuda:
-        return ntt_rows_plain(fs, x, inverse)
-    if x.dtype != torch.int32 or nl != fs.nl:
-        raise TypeError("ntt_rows: x must be (NL, M, B) int32 digit planes")
+        return ntt_rows_plain(fs, x, inverse, mul, out)
+    if (mul is not None and not mul.is_cuda) \
+            or (out is not None and not out.is_cuda):
+        raise ValueError("ntt_rows: every operand must be a CUDA tensor")
     nw, consts = K.field_consts(fs)
-    x = x.contiguous()
-    tw = _twiddles(fs, log_b, inverse, str(x.device))
-    out = torch.empty_like(x)
-    code = K.entry("zk_ntt_rows")(nw, consts, x.data_ptr(), tw.data_ptr(),
-                                  out.data_ptr(), m_rows, log_b,
-                                  K.stream_ptr())
+    tww = _twiddle_words(fs, log_b, inverse, str(x.device))
+    if out is None:
+        out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        out_strides = _row_strides(out)
+    code = K.entry("zk_ntt_rows")(
+        nw, consts, x.data_ptr(), x_strides, tww.data_ptr(),
+        None if mul_view is None else mul_view.data_ptr(),
+        None if mul_view is None else _row_strides(mul_view),
+        out.data_ptr(), out_strides, m_rows, log_b, log_g, threads,
+        K.stream_ptr())
     K.check(code, "zk_ntt_rows")
     LAUNCHES["ntt_rows"] += 1
     return out
@@ -307,43 +392,65 @@ def _four_step_twiddles(fs: FieldSpec, n: int, r: int, c: int,
     return L.from_numpy(L.pack_ints(fs, vals).reshape(fs.nl, c, r), device)
 
 
-def ntt_hopper_raw(fs: FieldSpec, x: torch.Tensor,
-                   inverse: bool = False) -> torch.Tensor:
-    """Unscaled NTT of x (NL, N) along the last axis, N = 2^k <= 2^20.
+@functools.lru_cache(maxsize=None)
+def _inverse_scale(fs: FieldSpec, n: int, device: str) -> torch.Tensor:
+    """1/n as an (NL, 1, 1) Montgomery constant that stays on `device`."""
+    return L.const_mont(fs, pow(n, -1, fs.p), (1, 1), device).contiguous()
 
-    Up to 2^10 the row kernel does it directly. Above that, the four-step
-    split N = R*C:
+
+def _transform(fs: FieldSpec, x: torch.Tensor, inverse: bool, scale,
+               rows=ntt_rows_hopper):
+    """NTT of x (NL, N) along the last axis, N = 2^k <= 2^20, times `scale`
+    (an (NL, 1, 1) constant or None), through the row transform `rows`.
+
+    Up to 2^10 one launch of the row kernel does it. Above that, the
+    four-step split N = R*C:
     X[k1*R + k2] = NTT_C over c { w_N^(c*k2) * NTT_R over r { x[r*C+c] } },
-    both sub-transforms in kernel 2, the twiddle product in kernel 1, the
-    transposes in PyTorch."""
+    two launches: the first transforms the columns of x as an (R, C) matrix
+    and stores w_N^(c*k2) times the result as rows (c, k2); the second
+    transforms the columns of that, scales, and stores them as the columns
+    of the output as a (C, R) matrix."""
     nl, n = x.shape
     log_n = n.bit_length() - 1
     assert 1 << log_n == n, "NTT size must be a power of two"
     if n == 1:
         return x
     if log_n <= _MAX_ROW_LOG:
-        return ntt_rows_hopper(fs, x[:, None, :], inverse)[:, 0, :]
-    log_c = (log_n + 1) // 2
-    if log_c > _MAX_ROW_LOG:
+        return rows(fs, x[:, None, :], inverse, mul=scale)[:, 0, :]
+    # C <= R: the second launch reads and writes columns and so gains most
+    # from short rows, which let a block take more of them side by side
+    log_c = log_n // 2
+    if log_n - log_c > _MAX_ROW_LOG:
         raise ValueError(f"NTT of 2^{log_n} exceeds the four-step range "
                          f"(2^{2 * _MAX_ROW_LOG})")
     c = 1 << log_c
     r = n >> log_c
-    a = x.reshape(nl, r, c).transpose(1, 2).contiguous()   # (NL, C, R)
-    a = ntt_rows_hopper(fs, a, inverse)                    # (NL, C, k2)
     tw = _four_step_twiddles(fs, n, r, c, inverse, str(x.device))
-    a = L.mont_mul(fs, a, tw)
-    a = a.transpose(1, 2).contiguous()                     # (NL, k2, C)
-    a = ntt_rows_hopper(fs, a, inverse)                    # (NL, k2, k1)
-    return a.transpose(1, 2).reshape(nl, n)                # (NL, k1*R+k2)
+    mid = rows(fs, x.reshape(nl, r, c).transpose(1, 2), inverse,
+               mul=tw)                                     # (NL, c, k2)
+    out = torch.empty((nl, n), dtype=torch.int32, device=x.device)
+    rows(fs, mid.transpose(1, 2), inverse, mul=scale,
+         out=out.reshape(nl, c, r).transpose(1, 2))
+    return out                                             # (NL, k1*R + k2)
 
 
-def ntt_hopper(fs: FieldSpec, x: torch.Tensor,
-               inverse: bool = False) -> torch.Tensor:
-    """Full NTT of x (NL, N): `ntt_hopper_raw`, and on the inverse the 1/N
-    factor (one more launch of kernel 1)."""
-    out = ntt_hopper_raw(fs, x, inverse)
-    if inverse and x.shape[1] > 1:
-        out = L.mont_mul(fs, out, L.const_mont(
-            fs, pow(x.shape[1], -1, fs.p), (1,), x.device))
-    return out
+def ntt_hopper_raw(fs: FieldSpec, x: torch.Tensor,
+                   inverse: bool = False) -> torch.Tensor:
+    """Unscaled NTT of x (NL, N): no 1/N factor on the inverse."""
+    return _transform(fs, x, inverse, None)
+
+
+def ntt_hopper(fs: FieldSpec, x: torch.Tensor, inverse: bool = False,
+               rows=ntt_rows_hopper) -> torch.Tensor:
+    """Full NTT of x (NL, N); the inverse's 1/N factor rides in the last
+    launch. `ntt_plain` is this with the plain row transform."""
+    scale = _inverse_scale(fs, x.shape[1], str(x.device)) \
+        if inverse and x.shape[1] > 1 else None
+    return _transform(fs, x, inverse, scale, rows)
+
+
+def ntt_plain(fs: FieldSpec, x: torch.Tensor,
+              inverse: bool = False) -> torch.Tensor:
+    """The plain version of `ntt_hopper`: the same split, strided views and
+    multipliers, every row transform by `ntt_rows_plain`."""
+    return ntt_hopper(fs, x, inverse, rows=ntt_rows_plain)

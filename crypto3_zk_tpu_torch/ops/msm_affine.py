@@ -24,7 +24,8 @@ What differs from the reference, and why:
 - the pass count k* is a Python int and the pass loop a Python loop;
 - the batched inversion always goes through kernels 3 and 4 of
   `ops/hopper_msm.py`, recursively on the chunk totals until at most
-  `_INV_DIRECT` values are left for a Fermat inversion; G2 denominators are
+  `hopper_msm.INV_TAIL_MAX` values are left, which kernel 3's tail inverts
+  in one launch; G2 denominators are
   reduced to their Fq norms first, so the same Fq kernels invert them;
 - the window width is a constructor argument (default 16 bits).
 
@@ -42,7 +43,6 @@ from . import limbs as L
 
 _DEAD = 0x7FFFFFFF      # sorts after every live (window, bucket) key
 _INV_CHUNK = 64         # chunk width of the batched inversion (kernel 3's K)
-_INV_DIRECT = 64        # at most this many values: invert by Fermat directly
 _LANES_CAP = 1 << 22    # max flattened (windows x points) lanes per group
 
 
@@ -79,12 +79,14 @@ def _batch_inverse_chunked(fs, x: torch.Tensor) -> torch.Tensor:
     into C chunks of K = 64 (chunk c holds lanes c, c+C, ...): kernel 3
     gives each element the product f of its chunk's elements before it, the
     product g of those after it and the chunk total; the totals are inverted
-    by the same procedure (recursion depth log_64 S), and kernel 4 forms
-    f * g * total^-1. About 4 multiplies per element and one Fermat chain
-    on at most 64 lanes."""
+    by the same procedure, and kernel 4 forms f * g * total^-1. The
+    recursion ends at `INV_TAIL_MAX` values or fewer, which the tail kernel
+    inverts in one launch: 2 + 2 + 1 launches for up to 2^22 lanes."""
     nl, size = x.shape
-    if size <= _INV_DIRECT:
-        return L.inv(fs, x)
+    if size == 0:
+        return x
+    if size <= HM.INV_TAIL_MAX:
+        return HM.batch_inverse_small_hopper(fs, x.contiguous())
     k = _INV_CHUNK
     c = -(-size // k)
     if c * k != size:

@@ -8,7 +8,8 @@ warm up (kernel build, base encoding), then proves three more times:
 
 1. plain, for the wall time and the prover's own phase seconds;
 2. under `torch.profiler`, for the time the device was busy (the sum of all
-   kernel times), the idle share, and the kernels ranked by device time;
+   kernel times), the idle share, the kernels ranked by device time, and
+   every kernel of the port's own (`port_kernels`), however small;
 3. under `cProfile`, for the host functions ranked by cumulative time.
 
 Both profilers slow the host down, so the idle share is given against the
@@ -33,6 +34,10 @@ from ..fields import curves as CV
 from ..models import groth16 as G16
 
 LOG2_CONSTRAINTS = 16
+# the port's own kernels as the profiler names them (csrc/*.cu)
+_OWN_KERNELS = ("void elementwise_kernel<", "void ntt_rows_kernel<",
+                "void inv_scans_kernel<", "void inv_tail_kernel<",
+                "void mul3_kernel<")
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
          "gamma": 0x456789A, "delta": 0x56789AB}
 
@@ -59,9 +64,10 @@ def _device_profile(kp, primary, aux) -> dict:
                             "device_ms": us / 1e3})
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels) / 1e3
+    own = [k for k in kernels if k["name"].startswith(_OWN_KERNELS)]
     return {"wall_s_profiled": wall, "device_busy_s": busy,
             "device_kernel_launches": sum(k["calls"] for k in kernels),
-            "top_kernels": kernels[:15]}
+            "top_kernels": kernels[:15], "port_kernels": own}
 
 
 def _host_profile(kp, primary, aux) -> dict:

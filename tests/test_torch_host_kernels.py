@@ -1,0 +1,169 @@
+"""The CUDA kernels' own sources, compiled for the CPU
+(`crypto3_zk_tpu_torch.tools.host_kernels`) and held against their plain
+PyTorch versions and Python integers, bit for bit. This runs the code of
+`csrc/*.cu` itself (indexing, strides, shared memory, barriers, the carry
+chains of `field.cuh` through their host definitions), which the wrappers
+never do on the CPU. Skipped where there is no `g++`."""
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from crypto3_zk_tpu_torch import kernels as K
+from crypto3_zk_tpu_torch.fields import params as TP
+from crypto3_zk_tpu_torch.ops import hopper_field as HF
+from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+from crypto3_zk_tpu_torch.ops import limbs as TL
+from crypto3_zk_tpu_torch.tools import host_kernels
+
+FQ, FR, BLS = TP.ALT_BN128_FQ, TP.ALT_BN128_FR, TP.BLS12_381_FQ
+
+
+@pytest.fixture(scope="module")
+def entry():
+    if host_kernels.compiler() is None:
+        pytest.skip("no g++ to compile the kernels for the CPU")
+    return host_kernels.entry
+
+
+def _rand(fs, shape, seed, nonzero=False):
+    rng = random.Random(seed)
+    n = int(np.prod(shape))
+    vals = [rng.randrange(1 if nonzero else 0, fs.p) for _ in range(n)]
+    if n >= 3:
+        vals[:3] = [1 if nonzero else 0, fs.R_mod_p, fs.p - 1]
+    return TL.encode(fs, vals, "cpu").reshape((fs.nl,) + tuple(shape))
+
+
+def _filled(shape):
+    return torch.full(shape, -7, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("fs", [FQ, TP.BLS12_381_FR, BLS],
+                         ids=lambda fs: fs.name)
+def test_field_arithmetic_against_python_ints(entry, fs):
+    rng = random.Random(5)
+    edge = [0, 1, fs.p - 1, fs.p - 2, fs.R_mod_p, (1 << 32) - 1, 1 << 32,
+            fs.p >> 1, (fs.p >> 1) + 1]
+    av = edge + [rng.randrange(fs.p) for _ in range(64)]
+    bv = [rng.randrange(fs.p) for _ in range(64)] + edge
+    a = torch.from_numpy(TL.pack_ints(fs, av).astype(np.int32))
+    b = torch.from_numpy(TL.pack_ints(fs, bv).astype(np.int32))
+    nw, consts = K.field_consts(fs)
+    _, shape3, avw, bvw = HF._launch_geometry(fs.nl, a, b)
+    for name, ref in (("zk_mont_mul", lambda x, y: x * y * fs.Rinv % fs.p),
+                      ("zk_add", lambda x, y: (x + y) % fs.p),
+                      ("zk_sub", lambda x, y: (x - y) % fs.p)):
+        out = _filled(a.shape)
+        assert entry(name)(nw, consts, avw.data_ptr(), bvw.data_ptr(),
+                           out.data_ptr(), *shape3, HF._kernel_strides(avw),
+                           HF._kernel_strides(bvw), None) == 0
+        assert TL.unpack_ints(fs, out) == [ref(x, y) for x, y in zip(av, bv)]
+
+
+def _scans(entry, fs, x):
+    nl, k, c = x.shape
+    share, _, _ = HM.scan_geometry(nl, k, c)
+    nw, consts = K.field_consts(fs)
+    f, g, tot = _filled(x.shape), _filled(x.shape), _filled((nl, c))
+    assert entry("zk_inv_scans")(nw, consts, x.data_ptr(), f.data_ptr(),
+                                 g.data_ptr(), tot.data_ptr(), k, c, share,
+                                 None) == 0
+    return f, g, tot
+
+
+@pytest.mark.parametrize("k,c", [(64, 33), (64, 1), (1, 7), (2, 8), (17, 40)])
+@pytest.mark.parametrize("fs", [FQ, BLS], ids=lambda fs: fs.name)
+def test_scan_kernel_matches_its_plain_version(entry, fs, k, c):
+    x = _rand(fs, (k, c), 100 * k + c, nonzero=True)
+    for got, want in zip(_scans(entry, fs, x), HM.inv_scans_plain(fs, x)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("size", [1, 2, 3, 63, 512, HM.INV_TAIL_MAX])
+@pytest.mark.parametrize("fs", [FQ, BLS], ids=lambda fs: fs.name)
+def test_tail_kernel_inverts(entry, fs, size):
+    x = _rand(fs, (size,), size, nonzero=True)
+    nw, consts = K.field_consts(fs)
+    out = _filled(x.shape)
+    assert entry("zk_inv_tail")(nw, consts, x.data_ptr(), out.data_ptr(),
+                                size, None) == 0
+    assert TL.decode(fs, out) == [pow(v, -1, fs.p) for v in TL.decode(fs, x)]
+    for bad in (0, HM.INV_TAIL_MAX + 1):
+        assert entry("zk_inv_tail")(nw, consts, x.data_ptr(),
+                                    out.data_ptr(), bad, None) != 0
+
+
+def test_mul3_kernel_matches_its_plain_version(entry):
+    a, b = _rand(FQ, (8, 5), 1), _rand(FQ, (8, 5), 2)
+    c = _rand(FQ, (5,), 3)
+    nw, consts = K.field_consts(FQ)
+    out = _filled(a.shape)
+    assert entry("zk_mul3")(nw, consts, a.data_ptr(), b.data_ptr(),
+                            c.data_ptr(), out.data_ptr(), 8, 5, None) == 0
+    assert torch.equal(out, HM.mul3_bcast_plain(FQ, a, b, c))
+
+
+def _rows(entry, fs, x, inverse, mul=None, out=None):
+    (m_rows, log_b, log_g, threads, _, xs, mul_view, out_strides) = \
+        HF._rows_launch(fs, x, mul, out)
+    nw, consts = K.field_consts(fs)
+    tww = HF._twiddle_words(fs, log_b, inverse, "cpu")
+    if out is None:
+        out = _filled(x.shape)
+        out_strides = HF._row_strides(out)
+    assert entry("zk_ntt_rows")(
+        nw, consts, x.data_ptr(), xs, tww.data_ptr(),
+        None if mul_view is None else mul_view.data_ptr(),
+        None if mul_view is None else HF._row_strides(mul_view),
+        out.data_ptr(), out_strides, m_rows, log_b, log_g, threads,
+        None) == 0
+    return out
+
+
+@pytest.mark.parametrize("log_b", range(1, 11))
+def test_row_kernel_matches_its_plain_version(entry, log_b):
+    for m_rows, inverse in ((1, False), (3, True)):
+        x = _rand(FR, (m_rows, 1 << log_b), 7 * log_b + m_rows)
+        assert torch.equal(_rows(entry, FR, x, inverse),
+                           HF.ntt_rows_plain(FR, x, inverse))
+
+
+def test_row_kernel_many_rows_a_block_and_twelve_words(entry, monkeypatch):
+    x = _rand(BLS, (300, 2), 5)
+    assert HF._rows_launch(BLS, x, None, None)[2] == 1
+    assert torch.equal(_rows(entry, BLS, x, False),
+                       HF.ntt_rows_plain(BLS, x, False))
+    monkeypatch.setattr(HF, "_ROWS_MIN_BLOCKS", 1)
+    for m_rows, b in ((37, 16), (5, 512)):
+        x = _rand(FR, (m_rows, b), m_rows)
+        assert HF._rows_launch(FR, x, None, None)[2] >= 2
+        assert torch.equal(_rows(entry, FR, x, True),
+                           HF.ntt_rows_plain(FR, x, True))
+
+
+@pytest.mark.parametrize("kind", ["none", "table", "constant", "per_row",
+                                  "per_element"])
+def test_row_kernel_strides_and_multipliers(entry, monkeypatch, kind):
+    monkeypatch.setattr(HF, "_ROWS_MIN_BLOCKS", 4)        # 4 rows a block
+    x = _rand(FR, (16, 16), 11).transpose(1, 2)           # columns as rows
+    table = _rand(FR, (16, 16), 12)
+    mul = {"none": None, "table": table, "constant": _rand(FR, (1, 1), 13),
+           "per_row": table[:, :, :1], "per_element": table[:, :1, :]}[kind]
+    want = HF.ntt_rows_plain(FR, x, True, mul)
+    assert torch.equal(_rows(entry, FR, x, True, mul), want)
+    flat = _filled((FR.nl, 256))
+    view = flat.reshape(FR.nl, 16, 16).transpose(1, 2)
+    _rows(entry, FR, x, True, mul, view)
+    assert torch.equal(view, want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_four_step_through_the_row_kernel(entry, inverse):
+    x = _rand(FR, (1 << 11,), 21)
+    got = HF.ntt_hopper(
+        FR, x, inverse,
+        rows=lambda fs, v, inv, mul=None, out=None:
+            _rows(entry, fs, v, inv, mul, out))
+    assert torch.equal(got, HF.ntt_plain(FR, x, inverse))

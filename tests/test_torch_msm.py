@@ -9,7 +9,9 @@ import pytest
 import torch
 
 from crypto3_zk_tpu.fields import curves as CV
+from crypto3_zk_tpu.ops import curve as CRV
 from crypto3_zk_tpu.ops import limbs as L
+from crypto3_zk_tpu.ops import msm_affine as MA
 from crypto3_zk_tpu.ops import pallas_msm as PM
 from crypto3_zk_tpu.ops.msm import msm_host
 from crypto3_zk_tpu_torch import convert as CONV
@@ -55,14 +57,131 @@ def test_inversion_kernels_plain_versions_match_pallas_kernels():
               mul3(tfs, tf, tg, ttot))
 
 
-@pytest.mark.parametrize("size", [1, 64, 65, 200])
+@pytest.mark.parametrize("size", [1, 64, 65, 200, 1024, 1025, 65537])
 def test_chunked_batch_inverse(size):
+    """Sizes on both sides of every level of the recursion: the tail alone
+    (up to 1024), one level of scans above it (1025), two levels (65537 lanes
+    leave 1025 chunk totals)."""
     tfs = TCURVE.fq
     rng = random.Random(size)
     vals = [rng.randrange(1, tfs.p) for _ in range(size)]
     vals[0] = tfs.p - 1
+    before = dict(HM.LAUNCHES)
     inv = TMA._batch_inverse_chunked(tfs, TL.encode(tfs, vals, "cpu"))
     assert TL.decode(tfs, inv) == [pow(v, -1, tfs.p) for v in vals]
+    assert HM.LAUNCHES == before          # nothing is launched on the CPU
+
+
+def test_chunked_batch_inverse_never_reaches_the_fermat_chain(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("limbs.inv was called")
+    monkeypatch.setattr(TL, "inv", refuse)
+    monkeypatch.setattr(TL, "mont_pow_const", refuse)
+    tfs = TCURVE.fq
+    vals = list(range(1, 1301))
+    inv = TMA._batch_inverse_chunked(tfs, TL.encode(tfs, vals, "cpu"))
+    assert TL.decode(tfs, inv) == [pow(v, -1, tfs.p) for v in vals]
+    empty = TL.zeros(tfs, (0,), "cpu")
+    assert TMA._batch_inverse_chunked(tfs, empty).shape == (tfs.nl, 0)
+
+
+@pytest.mark.parametrize("size", [1, 8, 64, 65, 512, HM.INV_TAIL_MAX])
+def test_inversion_tail_plain_version_matches_reference(size):
+    """The tail's plain version (and the wrapper, which takes it on the CPU)
+    against `pow(x, -1, p)` and against the JAX package's batched inversion,
+    bit for bit."""
+    fs, tfs = CURVE.fq, TCURVE.fq
+    rng = np.random.default_rng(100 + size)
+    vals = [int.from_bytes(rng.bytes(40), "little") % (fs.p - 1) + 1
+            for _ in range(size)]
+    vals[0] = fs.p - 1
+    x = L.encode(fs, vals)
+    ref = MA._batch_inverse_chunked(CRV.FqOps(fs), x, size)
+    tx = CONV.limbs_from_numpy(tfs, np.asarray(x), "cpu")
+    for invert in (HM.batch_inverse_small_plain,
+                   HM.batch_inverse_small_hopper):
+        got = invert(tfs, tx)
+        _same(ref, got)
+        assert TL.decode(tfs, got) == [pow(v, -1, fs.p) for v in vals]
+
+
+def test_inversion_tail_on_a_twelve_word_field_and_its_refusals():
+    tfs = TCV.BLS12_381.fq
+    vals = [1, 2, tfs.p - 1, 0x1234567890ABCDEF, tfs.R_mod_p]
+    got = HM.batch_inverse_small_hopper(tfs, TL.encode(tfs, vals, "cpu"))
+    assert TL.decode(tfs, got) == [pow(v, -1, tfs.p) for v in vals]
+    for bad in (0, HM.INV_TAIL_MAX + 1):
+        with pytest.raises(ValueError):
+            HM.batch_inverse_small_hopper(tfs, TL.zeros(tfs, (bad,), "cpu"))
+    with pytest.raises(ValueError):
+        HM.batch_inverse_small_hopper(tfs, TL.zeros(tfs, (2, 2), "cpu"))
+
+
+@pytest.mark.parametrize("curve", [TCV.ALT_BN128, TCV.BLS12_381])
+def test_tail_ladder_and_its_count_of_products(curve):
+    """The kernel's ladder, replayed on Python ints: 4-bit windows of p - 2
+    from the top over the table x^0..x^15 give x^-1, and the products it
+    takes are what `tail_products_in_sequence` states for one element."""
+    fs = curve.fq
+    x = 0xC0FFEE % fs.p
+    table, products = [1], 0
+    for _ in range(15):
+        table.append(table[-1] * x % fs.p)
+        products += 1
+    acc = None
+    for digit in (int(d, 16) for d in f"{fs.p - 2:x}"):
+        if acc is None:
+            acc = table[digit]
+            continue
+        for _ in range(4):
+            acc = acc * acc % fs.p
+            products += 1
+        if digit:
+            acc = acc * table[digit] % fs.p
+            products += 1
+    assert acc == pow(x, -1, fs.p)
+    assert HM.tail_products_in_sequence(fs, 1) == products
+    assert HM.tail_products_in_sequence(fs, 512) == products + 2 * 9
+    assert HM.tail_products_in_sequence(fs, 513) == products + 2 * 10
+
+
+def test_scan_geometry_is_what_the_kernel_is_given():
+    """(threads that share a chunk, blocks, shared-memory bytes)."""
+    nl = TCURVE.fq.nl
+    assert HM.scan_geometry(nl, 64, 1 << 15) == (8, 1024, 8 * 72 * 32 * 4)
+    assert HM.scan_geometry(nl, 64, 1) == (8, 1, 8 * 72 * 32 * 4)
+    assert HM.scan_geometry(nl, 64, 33) == (8, 2, 8 * 72 * 32 * 4)
+    assert HM.scan_geometry(nl, 32, 7)[0] == 4
+    assert HM.scan_geometry(nl, 17, 7)[0] == 2
+    assert HM.scan_geometry(nl, 15, 7)[0] == 1
+    assert HM.scan_geometry(nl, 1, 7) == (1, 1, 8 * 2 * 32 * 4)
+    assert HM.scan_geometry(24, 64, 5) == (8, 1, 12 * 72 * 32 * 4)
+    for k, c in ((0, 4), (4, 0), (300, 4)):
+        with pytest.raises(ValueError):
+            HM.scan_geometry(nl, k, c)
+
+
+@pytest.mark.parametrize("k,c", [(1, 7), (2, 8), (64, 3), (17, 5)])
+def test_scans_plain_version_against_python_ints(k, c):
+    """The (NL, K, C) layout at ragged shapes: chunk c is the elements
+    x[:, :, c], f and g are its exclusive prefix and suffix products."""
+    tfs = TCURVE.fq
+    rng = random.Random(k * 100 + c)
+    vals = [[rng.randrange(1, tfs.p) for _ in range(c)] for _ in range(k)]
+    x = TL.encode(tfs, [v for row in vals for v in row], "cpu") \
+        .reshape(tfs.nl, k, c)
+    f, g, tot = HM.inv_scans_hopper(tfs, x)
+    for j in range(c):
+        col = [vals[i][j] for i in range(k)]
+        pre = [1]
+        for v in col:
+            pre.append(pre[-1] * v % tfs.p)
+        suf = [1]
+        for v in reversed(col):
+            suf.append(suf[-1] * v % tfs.p)
+        assert TL.decode(tfs, f[:, :, j]) == pre[:-1]
+        assert TL.decode(tfs, g[:, :, j]) == suf[:-1][::-1]
+        assert TL.decode(tfs, tot[:, j:j + 1]) == [pre[-1]]
 
 
 def test_jacobian_formulas_match_host_curve():

@@ -115,16 +115,151 @@ def test_row_kernel_plain_version_matches_reference_rows(inverse):
           HF.ntt_rows_plain(TFS, tx, inverse))
 
 
-@pytest.mark.parametrize("log_n", [6, 11])
+@pytest.mark.parametrize("log_n", [6, 11, 12])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_four_step_wrapper_matches_reference(log_n, inverse):
-    """`ntt_hopper` at the largest direct size's neighbourhood and at 2^11,
-    the smallest size that takes the four-step branch. Held against
-    `crypto3_zk_tpu.ops.ntt.ntt`, which computes what `ntt_pallas` does: the
-    Pallas kernel's interpret mode is too slow here at these lengths."""
+    """`ntt_hopper` at a direct size and at 2^11 and 2^12, the smallest sizes
+    that take the four-step branch (C = 32, R = 64 and R = C = 64): two row
+    passes over strided views, the twiddle table and 1/N as multipliers.
+    Held against `crypto3_zk_tpu.ops.ntt.ntt`, which computes what
+    `ntt_pallas` does: the Pallas kernel's interpret mode is too slow here at
+    these lengths."""
     n = 1 << log_n
     _, x, tx = _pair(n, 30 + log_n)
-    _same(N.ntt(FS, x, inverse=inverse), HF.ntt_hopper(TFS, tx, inverse))
+    ref = N.ntt(FS, x, inverse=inverse)
+    _same(ref, HF.ntt_hopper(TFS, tx, inverse))
+    _same(ref, HF.ntt_plain(TFS, tx, inverse))
+    if not inverse:
+        _same(ref, HF.ntt_hopper_raw(TFS, tx, inverse))
+
+
+def _views(seed, m=8, b=16):
+    """A strided input (the columns of a (B, M) matrix as M rows of B), its
+    contiguous copy, and a strided output view into a flat buffer."""
+    _, _, base = _pair(m, seed, lead=(b,))                  # (NL, B, M)
+    x = base.transpose(1, 2)                                # (NL, M, B)
+    flat = torch.full((TFS.nl, m * b), -1, dtype=torch.int32)
+    return x, x.contiguous(), flat, flat.reshape(TFS.nl, b, m).transpose(1, 2)
+
+
+@pytest.mark.parametrize("kind", ["none", "table", "constant", "per_row",
+                                  "per_element"])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rows_with_strides_and_multiplier_equal_the_unfused_steps(kind,
+                                                                  inverse):
+    """Strided input, strided output and each kind of multiplier through the
+    plain row function and the wrapper: the same as transforming a
+    contiguous copy, multiplying afterwards and copying into place."""
+    x, xc, flat, view = _views(61)
+    _, _, table = _pair(16, 62, lead=(8,))                  # (NL, 8, 16)
+    mul = {"none": None, "table": table,
+           "constant": TL.const_mont(TFS, 0xABCDEF, (1, 1), "cpu"),
+           "per_row": table[:, :, :1], "per_element": table[:, :1, :]}[kind]
+    want = HF.ntt_rows_plain(TFS, xc, inverse)
+    if mul is not None:
+        want = HF.mont_mul_plain(TFS, want, mul)
+    for rows in (HF.ntt_rows_plain, HF.ntt_rows_hopper):
+        assert torch.equal(rows(TFS, x, inverse, mul), want)
+        flat.fill_(-1)
+        assert rows(TFS, x, inverse, mul, view) is view
+        assert torch.equal(view, want)
+        assert torch.equal(flat.reshape(TFS.nl, 16, 8),
+                           want.transpose(1, 2))
+
+
+def test_rows_launch_is_what_the_kernel_is_given():
+    """(rows, log B, log G, threads, shared-memory bytes, strides of x,
+    multiplier view, strides of out), and the layouts that are refused."""
+    nl = TFS.nl
+    x = torch.zeros((nl, 256, 512), dtype=torch.int32)
+    rows, log_b, log_g, threads, smem, xs, mul, outs = \
+        HF._rows_launch(TFS, x, None, None)
+    assert (rows, log_b, log_g, threads) == (256, 9, 1, 256)
+    assert smem == 8 * (2 * 512 + 256) * 4
+    assert list(xs) == [256 * 512, 512, 1] and mul is None and outs is None
+    # the two passes of a 2^17 four-step (C = 256, R = 512): columns in,
+    # then columns in and out
+    flat = torch.zeros((nl, 1 << 17), dtype=torch.int32)
+    cols = flat.reshape(nl, 512, 256).transpose(1, 2)       # (NL, 256, 512)
+    table = torch.zeros((nl, 256, 512), dtype=torch.int32)
+    rows, log_b, log_g, threads, smem, xs, mul, _ = \
+        HF._rows_launch(TFS, cols, table, None)
+    assert (rows, log_b, log_g, threads) == (256, 9, 1, 256)
+    assert list(xs) == [1 << 17, 1, 256]
+    assert mul.stride() == (1 << 17, 512, 1)
+    out = torch.zeros((nl, 1 << 17), dtype=torch.int32)
+    view = out.reshape(nl, 256, 512).transpose(1, 2)        # (NL, 512, 256)
+    scale = HF._inverse_scale(TFS, 1 << 17, "cpu")
+    assert scale is HF._inverse_scale(TFS, 1 << 17, "cpu")  # stays put
+    rows, log_b, log_g, threads, _, xs, mul, outs = \
+        HF._rows_launch(TFS, table.transpose(1, 2), scale, view)
+    assert (rows, log_b, log_g, threads) == (512, 8, 2, 256)
+    assert list(xs) == [1 << 17, 1, 512] and list(outs) == [1 << 17, 1, 512]
+    assert mul.shape == (nl, 512, 256) and mul.stride()[1:] == (0, 0)
+    # short rows are grouped while 128 blocks remain; few rows are not
+    short = torch.zeros((nl, 4096, 2), dtype=torch.int32)
+    assert HF._rows_launch(TFS, short, None, None)[2:4] == (5, 32)
+    one = torch.zeros((nl, 1, 1024), dtype=torch.int32)
+    assert HF._rows_launch(TFS, one, None, None)[2:4] == (0, 256)
+    wide = torch.zeros((24, 4096, 2), dtype=torch.int32)
+    assert HF._rows_launch(TP.BLS12_381_FQ, wide, None, None)[4] \
+        == 12 * (64 + 1) * 4
+    # refusals
+    bad_x = [torch.zeros((nl, 4, 24), dtype=torch.int32),        # not 2^k
+             torch.zeros((nl, 2, 2048), dtype=torch.int32),      # too long
+             torch.zeros((nl, 4, 1), dtype=torch.int32),
+             torch.zeros((nl, 0, 8), dtype=torch.int32)]
+    for bad in bad_x:
+        with pytest.raises(ValueError):
+            HF._rows_launch(TFS, bad, None, None)
+    for bad in (torch.zeros((nl, 4, 8), dtype=torch.int64),
+                torch.zeros((nl, 32), dtype=torch.int32),
+                torch.zeros((nl + 1, 4, 8), dtype=torch.int32)):
+        with pytest.raises(TypeError):
+            HF._rows_launch(TFS, bad, None, None)
+    x = torch.zeros((nl, 4, 8), dtype=torch.int32)
+    bad_out = [x,                                                # in place
+               x.transpose(1, 2).transpose(1, 2)[:, :, :],       # same storage
+               torch.zeros((nl, 4, 1), dtype=torch.int32).expand(nl, 4, 8),
+               torch.zeros((nl, 8, 4), dtype=torch.int32)]
+    for bad in bad_out:
+        with pytest.raises(ValueError):
+            HF._rows_launch(TFS, x, None, bad)
+    for bad in (torch.zeros((nl, 2, 8), dtype=torch.int32),
+                torch.zeros((nl, 8), dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            HF._rows_launch(TFS, x, bad, None)
+
+
+@pytest.mark.parametrize("log_b", [1, 2, 5, 9])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_twiddle_words_are_the_plain_table_fused_and_bit_reversed(log_b,
+                                                                  inverse):
+    words = HF._twiddle_words(TFS, log_b, inverse, "cpu").numpy() \
+        .view(np.uint32)
+    plain = HF._twiddles_np(TFS, log_b, inverse).astype(np.uint32)
+    assert words.shape == (TFS.nl // 2, max(1 << (log_b - 1), 1))
+    slots = HF.bitrev_perm(log_b - 1)
+    # slot m holds w^j with j = the bit reversal of m
+    np.testing.assert_array_equal(words & 0xFFFF, plain[0::2][:, slots])
+    np.testing.assert_array_equal(words >> 16, plain[1::2][:, slots])
+    # stage t of a row of 2^log_b reads the slots below 2^(t-1): they hold
+    # the powers w^(j * B / 2^t) that the stage needs
+    for t in range(1, log_b + 1):
+        js = sorted(int(slots[m]) for m in range(1 << (t - 1)))
+        assert js == [j << (log_b - t) for j in range(1 << (t - 1))]
+
+
+def test_kernels_refuse_a_modulus_that_fills_its_top_word():
+    """The carry chains of the CUDA arithmetic keep sums of two residues in
+    NW words, so a modulus without a free top bit is refused."""
+    from crypto3_zk_tpu_torch import kernels as K
+    p = 2**256 - 2**32 - 977
+    g = next(g for g in range(2, 50) if pow(g, (p - 1) // 2, p) == p - 1)
+    full = TP.FieldSpec("full_256", p, g, 1)
+    with pytest.raises(ValueError):
+        K.field_consts(full)
+    assert K.field_consts(TP.BLS12_381_FR)[0] == 8
 
 
 def test_four_step_twiddles_match_reference():
