@@ -5,18 +5,32 @@
 
 It builds the CUDA kernels from `crypto3_zk_tpu_torch/csrc/`, holds each of
 them against its plain PyTorch version on the card (exact equality: every
-value is an integer), then drives the port's main path through the entry
-points a user calls: Groth16 `generate`, `prove` (twice, the second is
-reported) and `verify` over alt_bn128 on a product-chain circuit of 2^16
-constraints, whose A and B sides are both dense. It fails (non-zero exit, no
-result line) without a CUDA device, when a kernel does not build, launch or
-agree, when a kernel of the path was never launched by `prove`, or when the
-verifier's answers are wrong.
+value is an integer), then drives the port's two main paths through the entry
+points a user calls:
+
+- Groth16 `generate`, `prove` (twice, the second is reported) and `verify`
+  over alt_bn128 on a product-chain circuit of 2^16 constraints, whose A and
+  B sides are both dense;
+- the LPC commitment scheme over bls12-381 Fr with Poseidon Merkle trees:
+  `FRIParams.build(degree_log=16, expand_factor=2, lambda_=40)`, a batch of 8
+  polynomials of degree < 2^16 and a fixed batch of 4 of degree < 3*2^14,
+  `commit` of both, `proof_eval` (twice, the second is reported) and
+  `verify_eval` by an independent verifier-side scheme. D0 has 2^18 points.
+
+It fails (non-zero exit, no result line) without a CUDA device, when a kernel
+does not build, launch or agree, when a kernel of a path was never launched
+by that path (the launch counts are set to 0 just before each path and read
+just after), when a verifier's answer is wrong (a proof rejected, a wrong
+public input or a changed evaluation accepted, prover and verifier
+transcripts that disagree), or when a small proof made on the card differs
+from the CPU plain path's.
 
 Output: one line per phase with its seconds; then the times of one whole 2^17
 transform as a JSON object; then, on a line of its own, a JSON object
-{"kernels": [...]} with every kernel's numbers; then the card's name and
-power limit; then the result line.
+{"kernels": [...]} with every kernel's numbers (`launches` is the sum over
+both paths, `launches_groth16_prove`, `launches_lpc_path` and
+`launches_lpc_proof_eval` its parts); then the card's name and power limit;
+then the result line.
 
 `--kernels-only` stops after the kernel checks, for a quick look at a kernel
 edit: it drives no main path, so its `kernels` line carries no `launches`
@@ -344,19 +358,121 @@ def check_kernels(torch):
             per_set_bytes=FLUSH_BYTES, extra_err=err5,
             latency_bound_ms=product_ms
             * HM.tail_products_in_sequence(fq, size))
+
+    check_poseidon(torch, gen, compare, measure, rows)
     return rows, transforms
+
+
+LPC_LOG2_DEGREE = 16         # the LPC path's polynomials: degree < 2^16
+LPC_EXPAND = 2               # its first domain D0 has 2^18 points, and its
+                             # first Merkle trees 2^17 leaves (the fixture's
+                             # expand factor, `tools/lpc_fixture.py`)
+
+
+def check_poseidon(torch, gen, compare, measure, rows):
+    """Kernel 5 against its plain version: both round orders, both word
+    counts, every input form the Merkle layer uses, and its time at the
+    LPC path's top shapes (the leaf sponge on 2^17 states, the largest
+    node level on 2^16)."""
+    from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    from crypto3_zk_tpu_torch.ops import nil_poseidon as NPO
+    from crypto3_zk_tpu_torch.ops import poseidon as PO
+
+    def planes(state):
+        return (state[:, 0], state[:, 1], state[:, 2])
+
+    def permute(fs, state):
+        return HH.poseidon_permute_hopper(pp, planes(state))
+
+    def permute_plain(fs, state):
+        return HH.poseidon_permute_plain(pp, planes(state))
+
+    def level(fs, digests):
+        return HH.poseidon_permute_hopper(
+            pp, (digests[:, 0::2], digests[:, 1::2], None), lane0_only=True)
+
+    def level_plain(fs, digests):
+        return HH.poseidon_permute_plain(
+            pp, (digests[:, 0::2], digests[:, 1::2], None), lane0_only=True)
+
+    def absorb(fs, state, r0, r1, lane0_only):
+        return HH.poseidon_permute_hopper(pp, planes(state), (r0, r1),
+                                          lane0_only)
+
+    def absorb_plain(fs, state, r0, r1, lane0_only):
+        return HH.poseidon_permute_plain(pp, planes(state), (r0, r1),
+                                         lane0_only)
+
+    def sponge(fs, r0, r1):
+        return HH.poseidon_permute_hopper(pp, (None, None, None), (r0, r1),
+                                          lane0_only=True)
+
+    def sponge_plain(fs, r0, r1):
+        return HH.poseidon_permute_plain(pp, (None, None, None), (r0, r1),
+                                         lane0_only=True)
+
+    top = 1 << (LPC_LOG2_DEGREE + LPC_EXPAND - 1)
+    err = 0
+    for pp in (PO.get_params(P.BLS12_381_FR), NPO.get_params(P.PALLAS_FQ),
+               PO.get_params(P.BLS12_381_FQ)):
+        fs = pp.fs
+        log(f"  poseidon on {fs.name}: alpha {pp.alpha}, "
+            f"{len(pp.round_constants)} rounds, partial "
+            f"{pp.partial_rounds}, rc first {pp.rc_first}, "
+            f"{HH.products_per_state(pp)} products a state")
+        for n in (1, 33, 4096, top):
+            err = max(err, compare("poseidon", fs, permute, permute_plain,
+                                   (rand_field(torch, fs, (3, n), gen),)))
+        for n in (33, 4096) if fs is P.BLS12_381_FR else (33,):
+            err = max(err, compare(
+                "poseidon(level)", fs, level, level_plain,
+                (rand_field(torch, fs, (2 * n,), gen),)))
+            for r1 in (rand_field(torch, fs, (n,), gen), None):
+                for lane0_only in (False, True):
+                    err = max(err, compare(
+                        "poseidon(absorb)", fs, absorb, absorb_plain,
+                        (rand_field(torch, fs, (3, n), gen),
+                         rand_field(torch, fs, (n,), gen), r1, lane0_only)))
+    # the Merkle forms at the LPC path's own top shapes: the largest node
+    # level (strided even and odd digests, no third element, element 0 out)
+    # and a two-row leaf sponge (no state, two absorb planes, element 0 out)
+    pp = PO.get_params(P.BLS12_381_FR)
+    fs = pp.fs
+    err = max(err, compare("poseidon(level)", fs, level, level_plain,
+                           (rand_field(torch, fs, (top,), gen),)))
+    err = max(err, compare("poseidon(absorb)", fs, sponge, sponge_plain,
+                           (rand_field(torch, fs, (top,), gen),
+                            rand_field(torch, fs, (top,), gen))))
+    products = HH.products_per_state(pp)
+    measure("poseidon", "crypto3_zk_tpu_torch/csrc/poseidon.cu",
+            "crypto3_zk_tpu/ops/poseidon.py:185", fs, permute, permute_plain,
+            lambda: (rand_field(torch, fs, (3, top), gen),),
+            bytes_moved=6 * fs.nl * 4 * top,
+            ops=products * mont_ops(fs.nl) * top,
+            per_set_bytes=3 * fs.nl * 4 * top, extra_err=err)
+    digests = [rand_field(torch, fs, (top,), gen) for _ in range(8)]
+    rows[-1]["level_ms"] = time_ms(
+        torch, lambda i: level(fs, digests[i]), len(digests), 20, queued=True)
+    rows[-1]["level_shape"] = [fs.nl, top // 2]
+    rows[-1]["products_per_state"] = products
+    log(f"  poseidon, node level of {top // 2} states: "
+        f"{rows[-1]['level_ms']:.4f} ms")
 
 
 def launch_counts() -> dict:
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
-    return {**HF.LAUNCHES, **HM.LAUNCHES}
+    return {**HF.LAUNCHES, **HM.LAUNCHES, **HH.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
-    for counts in (HF.LAUNCHES, HM.LAUNCHES, HM.ELEMENTS):
+    for counts in (HF.LAUNCHES, HM.LAUNCHES, HM.ELEMENTS, HH.LAUNCHES,
+                   HH.ELEMENTS):
         for name in counts:
             counts[name] = 0
 
@@ -364,6 +480,9 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
+
+GROTH16_KERNELS = ("mont_mul", "ntt_rows", "inv_scans", "mul3", "inv_tail")
+LPC_KERNELS = GROTH16_KERNELS + ("poseidon",)
 
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
          "gamma": 0x456789A, "delta": 0x56789AB}
@@ -463,7 +582,7 @@ def main_path(torch) -> dict:
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
     log(f"field elements those launches ran on: {HM.ELEMENTS}, a launch: "
         + str({k: v // max(counts[k], 1) for k, v in HM.ELEMENTS.items()}))
-    idle = [k for k, v in counts.items() if v <= 0]
+    idle = [k for k in GROTH16_KERNELS if counts[k] <= 0]
     if idle:
         raise AssertionError(f"prove never launched {idle}")
 
@@ -476,6 +595,88 @@ def main_path(torch) -> dict:
         raise AssertionError("the verifier accepted a wrong public input")
     log("verify with public input + 1: rejected")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LPC path (commit -> proof_eval -> verify_eval)
+# ---------------------------------------------------------------------------
+
+def small_agreement_lpc(torch):
+    """At degree_log = 6 (D0 = 2^8, trees of 128 leaves and fewer, every
+    level by kernel 5) the card's LPC proof, roots and next challenge equal
+    the CPU plain path's."""
+    from crypto3_zk_tpu_torch.tools.lpc_fixture import LPCRun
+
+    got = []
+    for device in ("cuda", "cpu"):
+        run = LPCRun(6, 4, device)
+        run.commit(lambda: None)
+        proof, challenge = run.prove(lambda: None)
+        got.append((run.roots, proof.z.z, proof.fri_proof, challenge))
+    if got[0] != got[1]:
+        raise AssertionError("card and CPU LPC proofs differ")
+    ok, challenge = run.verify(proof)
+    if not ok or challenge != got[0][3]:
+        raise AssertionError("small LPC proof rejected")
+
+
+def lpc_path(torch) -> tuple[dict, dict]:
+    """The LPC path at full size. Returns (launch counts of the whole path,
+    launch counts of the second `proof_eval` alone)."""
+    import copy
+    from crypto3_zk_tpu_torch.commitments.fri import PhaseClock
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    from crypto3_zk_tpu_torch.tools.lpc_fixture import LPCRun
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sync = torch.cuda.synchronize
+    t0 = time.perf_counter()
+    run = LPCRun(LPC_LOG2_DEGREE, 40, "cuda")
+    sync()
+    log(f"lpc: 8 polynomials of degree < 2^{LPC_LOG2_DEGREE} and 4 of degree "
+        f"< 3*2^{LPC_LOG2_DEGREE - 2} over {run.fs.name}, D0 = "
+        f"{run.params.D[0].n}, lambda 40, steps {run.params.step_list}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    run.commit(sync)
+    log("lpc " + ", ".join(f"{k}: {v:.3f} s" for k, v in run.seconds.items()))
+    for attempt in ("first", "second"):
+        before = launch_counts()
+        clock = PhaseClock("cuda")
+        proof, challenge = run.prove(sync, clock)
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in clock.seconds.items())
+        log(f"lpc proof_eval ({attempt}): {run.seconds['proof_eval']:.3f} s "
+            f"[{phases}] peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    per_proof = {k: v - before[k] for k, v in launch_counts().items()}
+    log(f"kernel launches in the second proof_eval: {per_proof}")
+
+    t0 = time.perf_counter()
+    ok, verifier_challenge = run.verify(proof)
+    log(f"lpc verify_eval: {time.perf_counter() - t0:.2f} s -> {ok}")
+    counts = launch_counts()
+    log(f"kernel launches on the LPC path (two commits, two proof_evals, "
+        f"verify): {counts}")
+    log(f"field elements the inversion and hash launches ran on: "
+        f"{ {**HM.ELEMENTS, **HH.ELEMENTS} }")
+    if not ok:
+        raise AssertionError("the LPC verifier rejected the proof")
+    if challenge != verifier_challenge:
+        raise AssertionError("prover and verifier transcripts differ")
+    log("lpc transcripts: same next challenge")
+    idle = [k for k in LPC_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"the LPC path never launched {idle}")
+
+    bad = copy.deepcopy(proof)
+    bad.z.z[0][0][0] = (bad.z.z[0][0][0] + 1) % run.fs.p
+    t0 = time.perf_counter()
+    if run.verify(bad)[0]:
+        raise AssertionError("the verifier accepted a tampered evaluation")
+    log(f"lpc verify_eval with one z value changed: rejected "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return counts, per_proof
 
 
 def main(argv=None) -> int:
@@ -517,8 +718,17 @@ def main(argv=None) -> int:
             log(f"msm 2^10 on {curve.name} against its oracle: equal: "
                 f"{dt:.2f} s")
         counts = main_path(torch)
+        t0 = time.perf_counter()
+        small_agreement_lpc(torch)
+        log(f"small LPC proof, card against CPU: equal: "
+            f"{time.perf_counter() - t0:.2f} s")
+        lpc_counts, lpc_per_proof = lpc_path(torch)
         for row in rows:
-            row["launches"] = counts[row["name"]]
+            name = row["name"]
+            row["launches"] = counts[name] + lpc_counts[name]
+            row["launches_groth16_prove"] = counts[name]
+            row["launches_lpc_path"] = lpc_counts[name]
+            row["launches_lpc_proof_eval"] = lpc_per_proof[name]
     log(json.dumps({"ntt_2p17_ms": transforms}))
     log(json.dumps({"kernels": rows}))
     log(f"total: {time.perf_counter() - t_all:.2f} s")

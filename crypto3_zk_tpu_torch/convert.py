@@ -1,10 +1,16 @@
-"""Carry keys and limb arrays from the JAX package over to this port.
+"""Carry keys, limb arrays, polynomials and proofs between the JAX package
+and this port.
 
 The port imports nothing of the JAX package, so a caller that holds the
 reference's objects hands them over as plain Python and numpy values:
 `dataclasses.asdict` would deep-copy a proving key, so pass
 `{f.name: getattr(key, f.name) for f in dataclasses.fields(key)}`.
-Curves travel by name, constraint systems as their constraint term lists.
+Curves and fields travel by name, constraint systems as their constraint
+term lists, polynomials as their digit arrays, FRI parameters as the
+`get_params()` dict, proofs as plain ints and bytes (`fri_proof_fields`),
+which compare with `==` (`fri_proof_as_plain`, `lpc_proof_as_plain`).
+Poseidon parameters are not carried: both packages derive them from the
+field.
 """
 from __future__ import annotations
 
@@ -12,10 +18,13 @@ import numpy as np
 import torch
 
 from .arithmetization import r1cs as R
+from .commitments import fri as FRI
 from .fields import curves as CV
 from .fields import mnt as MNT
+from .fields.params import FIELDS
 from .models import groth16 as G16
 from .ops import limbs as L
+from .poly.polynomial import Poly, PolyDFS
 
 
 def curve_by_name(name: str):
@@ -70,3 +79,97 @@ def limbs_from_numpy(fs, arr, device=None) -> torch.Tensor:
     if a.shape[0] != fs.nl:
         raise ValueError(f"expected {fs.nl} digit planes, got {a.shape[0]}")
     return L.from_numpy(a, device)
+
+
+# ---------------------------------------------------------------------------
+# the commitment layer: polynomials, FRI parameters and proofs
+# ---------------------------------------------------------------------------
+
+def poly_from_reference(fs, c_numpy, device=None) -> Poly:
+    """A reference `Poly`'s coefficient array `(NL, n)` -> the port's."""
+    return Poly(fs, limbs_from_numpy(fs, c_numpy, device))
+
+
+def poly_dfs_from_reference(fs, v_numpy, deg: int, device=None) -> PolyDFS:
+    """A reference `PolyDFS`'s evaluation array `(NL, n)` and degree bound
+    -> the port's."""
+    return PolyDFS(fs, limbs_from_numpy(fs, v_numpy, device), int(deg))
+
+
+def fri_params_from_reference(params: dict) -> FRI.FRIParams:
+    """The port's `FRIParams` from the reference's `FRIParams.get_params()`
+    dict (which carries `step_list`). The domains are rebuilt from the field
+    and the sizes, not copied."""
+    fs = FIELDS[params["field"]]
+    degree_log = (params["max_degree"] + 1).bit_length() - 1
+    if (1 << degree_log) - 1 != params["max_degree"]:
+        raise ValueError("max_degree is not 2^k - 1")
+    out = FRI.FRIParams.build(
+        fs, degree_log=degree_log, expand_factor=params["expand_factor"],
+        lambda_=params["lambda"], step_list=list(params["step_list"]),
+        use_grinding=params["use_grinding"],
+        grinding_parameter=params["grinding_parameter"],
+        merkle_hash=params["merkle_hash"],
+        transcript_hash=params["transcript_hash"])
+    if out.D[0].n != params["domain_size"] or out.r != params["r"]:
+        raise ValueError("the rebuilt domains differ from the reference's")
+    return out
+
+
+def _plain(x):
+    """Nested lists, tuples and dicts of ints and bytes as nested tuples."""
+    if isinstance(x, dict):
+        return tuple((k, _plain(v)) for k, v in sorted(x.items()))
+    if isinstance(x, (list, tuple)):
+        return tuple(_plain(v) for v in x)
+    if isinstance(x, bytes) or x is None:
+        return x
+    return int(x)
+
+
+def fri_proof_fields(proof) -> dict:
+    """Either package's `FRIProof` (duck-typed) as plain dicts and lists of
+    ints and bytes, from which the other package's dataclasses are built:
+    `{"fri_roots", "final_polynomial", "proof_of_work", "query_proofs":
+    [{"initial_proof": {k: {"values", "path", "leaf_index"}},
+    "round_proofs": [{"y", "path", "leaf_index"}]}]}`."""
+    return {
+        "fri_roots": list(proof.fri_roots),
+        "final_polynomial": [int(c) for c in proof.final_polynomial],
+        "proof_of_work": proof.proof_of_work,
+        "query_proofs": [{
+            "initial_proof": {
+                k: {"values": [[(int(a), int(b)) for a, b in pv]
+                               for pv in ip.values],
+                    "path": list(ip.path), "leaf_index": int(ip.leaf_index)}
+                for k, ip in qp.initial_proof.items()},
+            "round_proofs": [
+                {"y": [(int(a), int(b)) for a, b in rp.y],
+                 "path": list(rp.path), "leaf_index": int(rp.leaf_index)}
+                for rp in qp.round_proofs],
+        } for qp in proof.query_proofs],
+    }
+
+
+def fri_proof_from_fields(fields: dict, mod=FRI):
+    """A `FRIProof` of the module `mod` (this port's `commitments.fri` by
+    default; a test passes the reference's) from `fri_proof_fields`."""
+    return mod.FRIProof(
+        fri_roots=list(fields["fri_roots"]),
+        final_polynomial=list(fields["final_polynomial"]),
+        proof_of_work=fields["proof_of_work"],
+        query_proofs=[mod.QueryProof(
+            initial_proof={k: mod.InitialProof(**ip)
+                           for k, ip in qp["initial_proof"].items()},
+            round_proofs=[mod.RoundProof(**rp) for rp in qp["round_proofs"]])
+            for qp in fields["query_proofs"]])
+
+
+def fri_proof_as_plain(proof):
+    """Either package's `FRIProof` as nested tuples of ints and bytes."""
+    return _plain(fri_proof_fields(proof))
+
+
+def lpc_proof_as_plain(proof):
+    """Either package's `LPCProof` as nested tuples: (z table, FRI proof)."""
+    return (_plain(proof.z.z), fri_proof_as_plain(proof.fri_proof))

@@ -39,6 +39,8 @@ SOURCES: dict[str, dict[str, list]] = {
     "inv_scans.cu": {"zk_inv_scans": [_I, _P, _P, _P, _P, _P, _I, _LL, _I, _P],
                      "zk_inv_tail": [_I, _P, _P, _P, _I, _P]},
     "mul3.cu": {"zk_mul3": [_I, _P, _P, _P, _P, _P, _I, _LL, _P]},
+    "poseidon.cu": {"zk_poseidon_permute": [_I, _P, _P, _P, _P, _P, _P, _LL,
+                                            _P]},
 }
 
 _entry_points: dict[str, object] = {}

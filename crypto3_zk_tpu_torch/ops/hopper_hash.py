@@ -1,0 +1,193 @@
+"""CUDA kernel for the Poseidon permutation of a batch of states.
+
+Kernel 5, `poseidon_permute_hopper(pp, ins, adds, lane0_only)`: the width-3
+permutation of n independent states in ONE launch. It has no Pallas
+counterpart: the JAX package composes the permutation from elementwise field
+ops (`ops/poseidon.py::permute_batch`, `ops/nil_poseidon.py::permute_batch`)
+and leaves the fusion to its compiler; composed from `limbs.mont_mul` calls
+here it would be some 1,200 launches a permutation. Source:
+`csrc/poseidon.cu`. One thread per state, the three elements in registers,
+the round constants and the MDS matrix staged once per block in shared
+memory. It moves 6*NL*4 bytes a state for about 830 Montgomery products: the
+operations bound it.
+
+One entry serves both flavours. The parameter object `pp` carries the
+schedule as data: `round_constants` (rounds x 3 ints), `mds` (3 x 3 ints),
+`alpha`, `partial_rounds` (the half-open range of rounds whose S-box touches
+element 0 only) and `rc_first` (True: add rc -> S-box -> MDS, the original
+Poseidon; False: S-box -> MDS -> add rc, the nil flavour).
+
+State layout: (NL, 3, n), limb axis first, lanes innermost. The three
+elements are given as separate (NL, n) planes with any strides, so a state
+(`state[:, i]`), a Merkle level's even and odd digests (`cur[:, 0::2]`,
+`cur[:, 1::2]`) and a leaf row are all read in place; `None` is the zero
+element. `adds`, where given, are added to elements 0 and 1 before the
+permutation (the sponge's absorb). `lane0_only` returns element 0 alone,
+(NL, n), else the whole state.
+
+The wrapper runs the plain version only when every tensor lies on the CPU;
+given a CUDA tensor it launches the kernel or raises. `LAUNCHES` counts
+launches, `ELEMENTS` the states they ran on.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from .. import kernels as K
+from . import limbs as L
+from .hopper_field import add_plain, mont_mul_plain
+
+LAUNCHES = {"poseidon": 0}
+ELEMENTS = {"poseidon": 0}
+
+
+def products_per_state(pp) -> int:
+    """Montgomery products one permutation does on a state: the S-boxes
+    (by square-and-multiply on alpha's bits) and nine for every MDS mix."""
+    sbox = pp.alpha.bit_length() - 1 + bin(pp.alpha).count("1") - 1
+    rounds = len(pp.round_constants)
+    lo, hi = pp.partial_rounds
+    return (3 * (rounds - (hi - lo)) + (hi - lo)) * sbox + 9 * rounds
+
+
+@functools.lru_cache(maxsize=None)
+def _const_digits_np(pp) -> np.ndarray:
+    """(NL, rounds*3 + 9) digit planes, Montgomery form: the round constants
+    rc[r][i] at r*3 + i, then the matrix M[i][j] at rounds*3 + i*3 + j."""
+    fs = pp.fs
+    flat = [c for rc in pp.round_constants for c in rc]
+    flat += [c for row in pp.mds for c in row]
+    return L.pack_ints(fs, [c % fs.p * fs.R % fs.p for c in flat])
+
+
+@functools.lru_cache(maxsize=None)
+def _const_digits(pp, device: str) -> torch.Tensor:
+    return L.from_numpy(_const_digits_np(pp), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_words(pp, device: str) -> torch.Tensor:
+    """The table the kernel stages in shared memory: (rounds*3 + 9, NW)
+    int32, digit pairs fused to 32-bit words."""
+    d = _const_digits_np(pp).astype(np.uint32)
+    words = (d[0::2] | (d[1::2] << 16)).T
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)) \
+        .to(device)
+
+
+def _schedule(pp, lane0_only: bool):
+    lo, hi = pp.partial_rounds
+    return (ctypes.c_int * 6)(len(pp.round_constants), lo, hi, pp.alpha,
+                              1 if pp.rc_first else 0, 1 if lane0_only else 3)
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _sbox_plain(fs, x: torch.Tensor, alpha: int) -> torch.Tensor:
+    acc = x
+    for bit in bin(alpha)[3:]:
+        acc = mont_mul_plain(fs, acc, acc)
+        if bit == "1":
+            acc = mont_mul_plain(fs, acc, x)
+    return acc
+
+
+def poseidon_permute_plain(pp, ins, adds=(None, None),
+                           lane0_only: bool = False) -> torch.Tensor:
+    """The permutation composed from plain modular adds and Montgomery
+    products round by round, as the reference composes it."""
+    fs = pp.fs
+    n, device = _lanes(fs, ins, adds)
+    zero = torch.zeros((fs.nl, n), dtype=torch.int32, device=device)
+    elems = [zero if t is None else t for t in ins]
+    for j, extra in enumerate(adds):
+        if extra is not None:
+            elems[j] = add_plain(fs, elems[j], extra)
+    state = torch.stack(elems, dim=1)                       # (NL, 3, n)
+    consts = _const_digits(pp, str(device))
+    rounds = len(pp.round_constants)
+    mds = consts[:, rounds * 3:].reshape(fs.nl, 3, 3, 1)
+    lo, hi = pp.partial_rounds
+    for r in range(rounds):
+        rc = consts[:, r * 3:r * 3 + 3, None]               # (NL, 3, 1)
+        if pp.rc_first:
+            state = add_plain(fs, state, rc)
+        if lo <= r < hi:
+            state = torch.cat([_sbox_plain(fs, state[:, 0:1], pp.alpha),
+                               state[:, 1:]], dim=1)
+        else:
+            state = _sbox_plain(fs, state, pp.alpha)
+        # out[i] = sum_j M[i][j] * state[j]: the nine products as one call
+        prod = mont_mul_plain(fs, mds, state[:, None])      # (NL, 3, 3, n)
+        state = add_plain(fs, add_plain(fs, prod[:, :, 0], prod[:, :, 1]),
+                          prod[:, :, 2])
+        if not pp.rc_first:
+            state = add_plain(fs, state, rc)
+    return state[:, 0].contiguous() if lane0_only else state
+
+
+# ---------------------------------------------------------------------------
+# kernel 5
+# ---------------------------------------------------------------------------
+
+def _lanes(fs, ins, adds):
+    """Number of lanes and device of the planes given; refuses what the
+    kernel does not take. Pure shape work, the same on any device."""
+    if len(ins) != 3 or len(adds) != 2:
+        raise ValueError("poseidon: three state planes and two absorb "
+                         "planes (None where absent)")
+    planes = [t for t in (*ins, *adds) if t is not None]
+    if not planes:
+        raise ValueError("poseidon: no input plane")
+    first = planes[0]
+    for t in planes:
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != fs.nl:
+            raise TypeError("poseidon: planes are (NL, n) int32 digits")
+        if t.shape != first.shape or t.device != first.device:
+            raise ValueError("poseidon: planes differ in shape or device")
+    if first.shape[1] < 1:
+        raise ValueError("poseidon: no lanes")
+    return first.shape[1], first.device
+
+
+def plane_args(ins, adds):
+    """The five plane pointers {in0, in1, in2, add0, add1} (null where
+    absent) and their {lane, limb} strides in int32s, as the kernel takes
+    them."""
+    planes = (*ins, *adds)
+    ptrs = (ctypes.c_void_p * 5)(*[None if t is None else t.data_ptr()
+                                   for t in planes])
+    strides = (ctypes.c_longlong * 10)()
+    for i, t in enumerate(planes):
+        if t is not None:
+            strides[2 * i], strides[2 * i + 1] = t.stride(1), t.stride(0)
+    return ptrs, strides
+
+
+def poseidon_permute_hopper(pp, ins, adds=(None, None),
+                            lane0_only: bool = False) -> torch.Tensor:
+    """Kernel 5. ins: three (NL, n) planes, the state's elements (None = 0);
+    adds: two planes added to elements 0 and 1 first (None = nothing).
+    Returns the permuted state (NL, 3, n), or its element 0 (NL, n)."""
+    fs = pp.fs
+    n, device = _lanes(fs, ins, adds)
+    if device.type != "cuda":
+        return poseidon_permute_plain(pp, ins, adds, lane0_only)
+    nw, fconsts = K.field_consts(fs)
+    ptrs, strides = plane_args(ins, adds)
+    out = torch.empty((fs.nl, n) if lane0_only else (fs.nl, 3, n),
+                      dtype=torch.int32, device=device)
+    code = K.entry("zk_poseidon_permute")(
+        nw, fconsts, ptrs, strides, _schedule(pp, lane0_only),
+        _const_words(pp, str(device)).data_ptr(), out.data_ptr(), n,
+        K.stream_ptr())
+    K.check(code, "zk_poseidon_permute")
+    LAUNCHES["poseidon"] += 1
+    ELEMENTS["poseidon"] += n
+    return out

@@ -47,6 +47,7 @@ LAUNCHES = {"inv_scans": 0, "mul3": 0, "inv_tail": 0}
 ELEMENTS = {"inv_scans": 0, "mul3": 0, "inv_tail": 0}
 
 INV_TAIL_MAX = 1024         # elements one launch of the tail takes
+INV_CHUNK = 64              # chunk width of the batched inversion
 _SCAN_TILE = 32             # chunks a block of kernel 3 takes
 _SCAN_MAX_SHARE = 8         # threads that share one chunk, at most
 _SCAN_MIN_RUN = 8           # elements a thread owns, at least
@@ -206,3 +207,29 @@ def mul3_bcast_hopper(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor,
     LAUNCHES["mul3"] += 1
     ELEMENTS["mul3"] += k * cc
     return out
+
+
+def batch_inverse_chunked(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Inverse of every element of x (NL, S), all nonzero. The lanes split
+    into C chunks of K = 64 (chunk c holds lanes c, c+C, ...): kernel 3
+    gives each element the product f of its chunk's elements before it, the
+    product g of those after it and the chunk total; the totals are inverted
+    by the same procedure, and kernel 4 forms f * g * total^-1. The
+    recursion ends at `INV_TAIL_MAX` values or fewer, which the tail kernel
+    inverts in one launch: 2 + 2 + 1 launches for up to 2^22 lanes. One
+    zero element would zero its whole chunk's products: callers that may
+    hold zeros mask them first (`limbs.batch_inverse` does)."""
+    nl, size = x.shape
+    if size == 0:
+        return x
+    if size <= INV_TAIL_MAX:
+        return batch_inverse_small_hopper(fs, x.contiguous())
+    k = INV_CHUNK
+    c = -(-size // k)
+    if c * k != size:
+        x = torch.cat([x, L.ones_mont(fs, (c * k - size,), x.device)], dim=1)
+    f, g, tot = inv_scans_hopper(fs, x.contiguous().reshape(nl, k, c))
+    term = batch_inverse_chunked(fs, tot)
+    inv = mul3_bcast_hopper(fs, f, g, term.contiguous())
+    inv = inv.reshape(nl, k * c)
+    return inv if c * k == size else inv[:, :size].contiguous()

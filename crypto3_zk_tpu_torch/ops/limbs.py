@@ -178,23 +178,45 @@ def inv(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
 
 
 def batch_inverse(fs: FieldSpec, x: torch.Tensor, axis: int = -1):
-    """Montgomery-trick batched inversion along a batch axis: two
-    prefix-product scans and ONE Fermat inversion per line. Zeros invert to
-    zero."""
+    """Batched inversion of every element (Montgomery's trick). Zeros invert
+    to zero. An element's inverse does not depend on how the lanes are
+    grouped, so the two paths agree exactly:
+
+    - a CUDA tensor is flattened behind the limb axis and goes through
+      kernels 3, 4 and the tail (`hopper_msm.batch_inverse_chunked`);
+    - a CPU tensor takes two prefix-product scans along `axis` and ONE
+      Fermat inversion per line."""
     if axis < 0:
         axis = x.dim() + axis
     assert axis >= 1, "axis 0 is the limb axis"
     zmask = is_zero(fs, x)
     x = select(zmask, ones_mont(fs, x.shape[1:], x.device), x)
-    n = x.shape[axis]
-    pre = _prefix_products(fs, x, axis, reverse=False)   # inclusive prefix
-    suf = _prefix_products(fs, x, axis, reverse=True)    # inclusive suffix
-    total_inv = inv(fs, pre.narrow(axis, n - 1, 1))
-    one = ones_mont(fs, x.shape[1:], x.device).narrow(axis, 0, 1)
-    pre_ex = torch.cat([one, pre.narrow(axis, 0, n - 1)], dim=axis)
-    suf_ex = torch.cat([suf.narrow(axis, 1, n - 1), one], dim=axis)
-    out = mont_mul(fs, mont_mul(fs, pre_ex, suf_ex), total_inv)
+    if x.is_cuda:
+        from . import hopper_msm as HM
+        out = HM.batch_inverse_chunked(
+            fs, x.reshape(fs.nl, -1).contiguous()).reshape(x.shape)
+    else:
+        n = x.shape[axis]
+        pre = _prefix_products(fs, x, axis, reverse=False)  # inclusive prefix
+        suf = _prefix_products(fs, x, axis, reverse=True)   # inclusive suffix
+        total_inv = inv(fs, pre.narrow(axis, n - 1, 1))
+        one = ones_mont(fs, x.shape[1:], x.device).narrow(axis, 0, 1)
+        pre_ex = torch.cat([one, pre.narrow(axis, 0, n - 1)], dim=axis)
+        suf_ex = torch.cat([suf.narrow(axis, 1, n - 1), one], dim=axis)
+        out = mont_mul(fs, mont_mul(fs, pre_ex, suf_ex), total_inv)
     return select(zmask, zeros(fs, (1,) * (x.dim() - 1), x.device), out)
+
+
+def prefix_product_exclusive(fs: FieldSpec, x: torch.Tensor,
+                             axis: int = -1) -> torch.Tensor:
+    """[1, x0, x0x1, ...] along `axis`: the grand-product ladder of the
+    Placeholder arguments as a log-depth scan."""
+    if axis < 0:
+        axis = x.dim() + axis
+    n = x.shape[axis]
+    incl = _prefix_products(fs, x, axis, reverse=False)
+    one = ones_mont(fs, x.shape[1:], x.device).narrow(axis, 0, 1)
+    return torch.cat([one, incl.narrow(axis, 0, n - 1)], dim=axis)
 
 
 def _prefix_products(fs: FieldSpec, x: torch.Tensor, axis: int,
@@ -219,12 +241,14 @@ def _prefix_products(fs: FieldSpec, x: torch.Tensor, axis: int,
 
 
 def powers(fs: FieldSpec, base_int: int, n: int, device=None) -> torch.Tensor:
-    """[1, w, w^2, ..., w^(n-1)] in Montgomery form, built on the host (a
-    python mulmod chain) and moved to `device`."""
-    return from_numpy(powers_np(fs, base_int, n), device)
+    """[1, w, w^2, ..., w^(n-1)] in Montgomery form, built on `device`
+    (`powers_of`)."""
+    return powers_of(fs, encode(fs, [base_int], device), n)
 
 
 def powers_np(fs: FieldSpec, base_int: int, n: int) -> np.ndarray:
+    """`powers` as a numpy array of digits, by a host multiply chain: for
+    the short tables a kernel's launch code packs on the host."""
     w = base_int % fs.p
     vals = []
     acc = fs.R_mod_p  # mont(1)
@@ -232,3 +256,15 @@ def powers_np(fs: FieldSpec, base_int: int, n: int) -> np.ndarray:
         vals.append(acc)
         acc = acc * w % fs.p
     return pack_ints(fs, vals)
+
+
+def powers_of(fs: FieldSpec, x: torch.Tensor, n: int) -> torch.Tensor:
+    """[1, x, x^2, ..., x^(n-1)] for a base x of shape (NL, 1) in Montgomery
+    form, on x's device, by doubling: the table of length 2m is the table of
+    length m followed by x^m times it. log2(n) products, no host chain."""
+    pw = ones_mont(fs, (1,), x.device).contiguous()
+    step = x                                   # x^(len(pw))
+    while pw.shape[1] < n:
+        pw = torch.cat([pw, mont_mul(fs, pw, step)], dim=1)
+        step = mont_mul(fs, step, step)
+    return pw[:, :n]

@@ -42,7 +42,6 @@ from . import hopper_msm as HM
 from . import limbs as L
 
 _DEAD = 0x7FFFFFFF      # sorts after every live (window, bucket) key
-_INV_CHUNK = 64         # chunk width of the batched inversion (kernel 3's K)
 _LANES_CAP = 1 << 22    # max flattened (windows x points) lanes per group
 
 
@@ -71,32 +70,8 @@ def _shape_of(t):
 
 
 # ---------------------------------------------------------------------------
-# batched inversion (kernels 3 and 4)
+# batched inversion (`hopper_msm.batch_inverse_chunked`: kernels 3 and 4)
 # ---------------------------------------------------------------------------
-
-def _batch_inverse_chunked(fs, x: torch.Tensor) -> torch.Tensor:
-    """Inverse of every element of x (NL, S), all nonzero. The lanes split
-    into C chunks of K = 64 (chunk c holds lanes c, c+C, ...): kernel 3
-    gives each element the product f of its chunk's elements before it, the
-    product g of those after it and the chunk total; the totals are inverted
-    by the same procedure, and kernel 4 forms f * g * total^-1. The
-    recursion ends at `INV_TAIL_MAX` values or fewer, which the tail kernel
-    inverts in one launch: 2 + 2 + 1 launches for up to 2^22 lanes."""
-    nl, size = x.shape
-    if size == 0:
-        return x
-    if size <= HM.INV_TAIL_MAX:
-        return HM.batch_inverse_small_hopper(fs, x.contiguous())
-    k = _INV_CHUNK
-    c = -(-size // k)
-    if c * k != size:
-        x = torch.cat([x, L.ones_mont(fs, (c * k - size,), x.device)], dim=1)
-    f, g, tot = HM.inv_scans_hopper(fs, x.contiguous().reshape(nl, k, c))
-    term = _batch_inverse_chunked(fs, tot)
-    inv = HM.mul3_bcast_hopper(fs, f, g, term.contiguous())
-    inv = inv.reshape(nl, k * c)
-    return inv if c * k == size else inv[:, :size].contiguous()
-
 
 def _inv_batch(ops, den):
     """Batched inverse of nonzero slope denominators, generic over Fq/Fq2.
@@ -106,10 +81,10 @@ def _inv_batch(ops, den):
         a, b = den
         fs = ops.fs
         norm = L.add(fs, L.mont_mul(fs, a, a), L.mont_mul(fs, b, b))
-        ninv = _batch_inverse_chunked(fs, norm)
+        ninv = HM.batch_inverse_chunked(fs, norm)
         return (L.mont_mul(fs, a, ninv),
                 L.mont_mul(fs, L.neg(fs, b), ninv))
-    return _batch_inverse_chunked(ops.fs, den)
+    return HM.batch_inverse_chunked(ops.fs, den)
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,16 @@ def _log2(n: int) -> int:
     return log_n
 
 
+def _each_line(fs: FieldSpec, x: torch.Tensor, transform) -> torch.Tensor:
+    """`transform` (a function of an (NL, N) tensor) on every line of a
+    batched (NL, *batch, N) tensor: the four-step split takes one line at a
+    time, as strided views of x, two launches of kernel 2 a line."""
+    lines = x.reshape(fs.nl, -1, x.shape[-1])
+    out = torch.stack([transform(lines[:, i]) for i in range(lines.shape[1])],
+                      dim=1)
+    return out.reshape(x.shape)
+
+
 def ntt_raw(fs: FieldSpec, x: torch.Tensor,
             inverse: bool = False) -> torch.Tensor:
     """Unscaled transform along the last axis (no 1/N factor on inverse)."""
@@ -59,25 +69,27 @@ def ntt_raw(fs: FieldSpec, x: torch.Tensor,
     log_n = _log2(n)
     if n == 1:
         return x
+    if log_n > HF._MAX_ROW_LOG and x.dim() > 2:
+        return _each_line(fs, x, lambda v: HF.ntt_hopper_raw(fs, v, inverse))
     if not x.is_cuda:
         return HF.ntt_rows_plain(fs, x, inverse)
     if log_n <= HF._MAX_ROW_LOG:
         rows = x.reshape(fs.nl, -1, n)
         return HF.ntt_rows_hopper(fs, rows, inverse).reshape(x.shape)
-    if x.dim() != 2:
-        raise ValueError("batched transforms above the row kernel's length "
-                         "are not supported on the card")
     return HF.ntt_hopper_raw(fs, x, inverse)
 
 
 def ntt(fs: FieldSpec, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Forward: coefficients -> evaluations on the radix-2 domain (natural
     order: index i holds f(w^i)). Inverse: evaluations -> coefficients.
-    Transform along the last axis; leading axis is limbs."""
+    Transform along the last axis of (NL, *batch, N), any N = 2^k up to the
+    four-step range, on either device."""
     n = x.shape[-1]
     log_n = _log2(n)
     if n == 1:
         return x
+    if log_n > HF._MAX_ROW_LOG and x.dim() > 2:
+        return _each_line(fs, x, lambda v: HF.ntt_hopper(fs, v, inverse))
     if x.is_cuda and x.dim() == 2:
         return HF.ntt_hopper(fs, x, inverse)
     y = ntt_raw(fs, x, inverse)
@@ -85,6 +97,24 @@ def ntt(fs: FieldSpec, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
         return y
     return L.mont_mul(fs, y, L.const_mont(fs, get_plan(fs, log_n).n_inv,
                                           (1,) * (y.dim() - 1), x.device))
+
+
+def sum_reduce(fs: FieldSpec, x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Modular sum along an axis by log-depth halving; a length that is not
+    a power of two is padded with zeros."""
+    if axis < 0:
+        axis = x.dim() + axis
+    n = x.shape[axis]
+    m = 1 << (n - 1).bit_length() if n > 1 else 1
+    if m != n:
+        pad = list(x.shape)
+        pad[axis] = m - n
+        x = torch.cat([x, torch.zeros(pad, dtype=x.dtype, device=x.device)],
+                      dim=axis)
+    while m > 1:
+        m //= 2
+        x = L.add(fs, x.narrow(axis, 0, m), x.narrow(axis, m, m))
+    return x.squeeze(axis)
 
 
 @functools.lru_cache(maxsize=64)
@@ -95,7 +125,7 @@ def _coset_powers(fs: FieldSpec, gg: int, n: int, device: str):
 def coset_scale(fs: FieldSpec, coeffs: torch.Tensor, g: int,
                 inverse: bool = False) -> torch.Tensor:
     """Multiply coefficient i by g^i (or g^-i): maps evals on D to evals on
-    g*D. The power table is built on the host once per (field, g, n)."""
+    g*D. The power table is built once per (field, g, n, device)."""
     n = coeffs.shape[-1]
     gg = pow(g, -1, fs.p) if inverse else (g % fs.p)
     pw = _coset_powers(fs, gg, n, str(coeffs.device))

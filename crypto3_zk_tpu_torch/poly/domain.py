@@ -2,7 +2,8 @@
 
 Counterpart of `poly/domain.py` of the JAX package: the equivalent of
 `math::evaluation_domain<F>` / `make_evaluation_domain` (reference usage:
-`r1cs_to_qap.hpp:229-310`). Device bulk transforms delegate to `ops.ntt`;
+`r1cs_to_qap.hpp:229-310`) and `math::calculate_domain_set`
+(`basic_fri.hpp:162,179`). Device bulk transforms delegate to `ops.ntt`;
 the host-side helpers (single Lagrange evaluation, vanishing polynomial)
 serve the (scalar, host-run) verifiers.
 """
@@ -85,3 +86,10 @@ class Domain:
 @functools.lru_cache(maxsize=None)
 def get_domain(fs: FieldSpec, n: int) -> Domain:
     return Domain(fs, n)
+
+
+def calculate_domain_set(fs: FieldSpec, max_log: int,
+                         count: int) -> list[Domain]:
+    """Nested FRI domains D_0, D_1, ... each half the size of the one before
+    (`math::calculate_domain_set`, `basic_fri.hpp:162,179`)."""
+    return [get_domain(fs, 1 << (max_log - i)) for i in range(count)]

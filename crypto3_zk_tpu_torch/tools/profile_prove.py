@@ -1,10 +1,15 @@
-"""Where one Groth16 prove spends its time on the GPU.
+"""Where one Groth16 prove, or one LPC `proof_eval`, spends its time on the
+GPU.
 
-    python3 -m crypto3_zk_tpu_torch.tools.profile_prove [--out profile.json]
+    python3 -m crypto3_zk_tpu_torch.tools.profile_prove [--lpc] [--out f.json]
 
-Generates a key for the product-chain circuit of 2^16 constraints over
-alt_bn128 (the size `chip_smoke.py` proves), proves once to
-warm up (kernel build, base encoding), then proves three more times:
+By default it generates a key for the product-chain circuit of 2^16
+constraints over alt_bn128 (the size `chip_smoke.py` proves). With `--lpc`
+it builds the LPC deployment `chip_smoke.py` drives instead
+(`tools/lpc_fixture.py`: 12 polynomials of degree < 2^16 over bls12-381 Fr,
+D0 = 2^18, lambda 40, Poseidon trees) and commits both batches; "prove" below
+is then one `LPCScheme.proof_eval`. Either way it proves once to warm up
+(kernel build, base encoding, cached tables), then proves three more times:
 
 1. plain, for the wall time and the prover's own phase seconds;
 2. under `torch.profiler`, for the time the device was busy (the sum of all
@@ -37,23 +42,23 @@ LOG2_CONSTRAINTS = 16
 # the port's own kernels as the profiler names them (csrc/*.cu)
 _OWN_KERNELS = ("void elementwise_kernel<", "void ntt_rows_kernel<",
                 "void inv_scans_kernel<", "void inv_tail_kernel<",
-                "void mul3_kernel<")
+                "void mul3_kernel<", "void poseidon_kernel<")
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
          "gamma": 0x456789A, "delta": 0x56789AB}
 
 
-def _prove(kp, primary, aux):
+def _timed(prove):
     t0 = time.perf_counter()
-    proof = G16.prove(kp.pk, primary, aux, rng=random.Random(12))
+    proof = prove()
     torch.cuda.synchronize()
     return proof, time.perf_counter() - t0
 
 
-def _device_profile(kp, primary, aux) -> dict:
+def _device_profile(prove) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = _prove(kp, primary, aux)
+        _, wall = _timed(prove)
     kernels = []
     for evt in prof.key_averages():
         us = getattr(evt, "self_device_time_total", None)
@@ -70,10 +75,10 @@ def _device_profile(kp, primary, aux) -> dict:
             "top_kernels": kernels[:15], "port_kernels": own}
 
 
-def _host_profile(kp, primary, aux) -> dict:
+def _host_profile(prove) -> dict:
     prof = cProfile.Profile()
     prof.enable()
-    _, wall = _prove(kp, primary, aux)
+    _, wall = _timed(prove)
     prof.disable()
     stats = pstats.Stats(prof)
     rows = []
@@ -87,9 +92,59 @@ def _host_profile(kp, primary, aux) -> dict:
             "by_self": by_self}
 
 
+def _groth16_setup() -> tuple:
+    """The Groth16 workload: (facts for the result, prove(), accept(proof),
+    phases())."""
+    curve = CV.ALT_BN128
+    cs, primary, aux = product_chain(curve.fr.p, 1 << LOG2_CONSTRAINTS)
+    t0 = time.perf_counter()
+    kp = G16.generate(curve, cs, toxic=TOXIC)
+    facts = {"workload": "groth16", "log2_constraints": LOG2_CONSTRAINTS,
+             "keygen_s": time.perf_counter() - t0}
+
+    def prove():
+        return G16.prove(kp.pk, primary, aux, rng=random.Random(12))
+
+    def accept(proof):
+        return G16.verify(kp.vk, primary, proof)
+
+    return facts, prove, accept, lambda: dict(G16.LAST_PROVE_SECONDS)
+
+
+def _lpc_setup() -> tuple:
+    """The LPC workload, as `_groth16_setup`."""
+    from ..commitments.fri import PhaseClock
+    from .lpc_fixture import LPCRun
+
+    run = LPCRun(LOG2_CONSTRAINTS, 40, "cuda")
+    run.commit(torch.cuda.synchronize)
+    facts = {"workload": "lpc_proof_eval", "log2_degree": LOG2_CONSTRAINTS,
+             "domain_size": run.params.D[0].n, "lambda": 40,
+             "polynomials": [len(s) for s in run.sizes],
+             "commit_s": dict(run.seconds)}
+
+    def prove():
+        return run.prove(lambda: None)[0]
+
+    def accept(proof):
+        return run.verify(proof)[0]
+
+    def phases():
+        """One more `proof_eval`, with a clock that drains the device at
+        each phase's end (the timed and profiled ones run without)."""
+        clock = PhaseClock("cuda")
+        run.prove(lambda: None, clock)
+        return dict(clock.seconds)
+
+    return facts, prove, accept, phases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--lpc", action="store_true",
+                    help="profile one LPC proof_eval instead of a Groth16 "
+                         "prove")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -98,25 +153,22 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
 
-    curve = CV.ALT_BN128
-    cs, primary, aux = product_chain(curve.fr.p, 1 << LOG2_CONSTRAINTS)
-    t0 = time.perf_counter()
-    kp = G16.generate(curve, cs, toxic=TOXIC)
-    keygen = time.perf_counter() - t0
-    _prove(kp, primary, aux)                               # warm-up
-    proof, wall = _prove(kp, primary, aux)
-    phases = dict(G16.LAST_PROVE_SECONDS)
-    if not G16.verify(kp.vk, primary, proof):
+    facts, prove, accept, phases_of = \
+        _lpc_setup() if args.lpc else _groth16_setup()
+    _timed(prove)                                          # warm-up
+    proof, wall = _timed(prove)
+    phases = phases_of()
+    if not accept(proof):
         raise AssertionError("the proof was rejected")
 
-    device = _device_profile(kp, primary, aux)
+    device = _device_profile(prove)
     device["idle_share_profiled"] = \
         1 - device["device_busy_s"] / device["wall_s_profiled"]
     device["idle_share_against_plain_wall"] = \
         1 - device["device_busy_s"] / wall
-    result = {"card": card, "log2_constraints": LOG2_CONSTRAINTS,
-              "keygen_s": keygen, "prove_wall_s": wall, "phases_s": phases,
-              "device": device, "host": _host_profile(kp, primary, aux)}
+    result = {"card": card, **facts, "prove_wall_s": wall,
+              "phases_s": phases, "device": device,
+              "host": _host_profile(prove)}
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

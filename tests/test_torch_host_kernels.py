@@ -167,3 +167,73 @@ def test_four_step_through_the_row_kernel(entry, inverse):
         rows=lambda fs, v, inv, mul=None, out=None:
             _rows(entry, fs, v, inv, mul, out))
     assert torch.equal(got, HF.ntt_plain(FR, x, inverse))
+
+
+def _poseidon(entry, pp, ins, adds=(None, None), lane0_only=False):
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    fs = pp.fs
+    n, _ = HH._lanes(fs, ins, adds)
+    nw, consts = K.field_consts(fs)
+    ptrs, strides = HH.plane_args(ins, adds)
+    out = _filled((fs.nl, n) if lane0_only else (fs.nl, 3, n))
+    assert entry("zk_poseidon_permute")(
+        nw, consts, ptrs, strides, HH._schedule(pp, lane0_only),
+        HH._const_words(pp, "cpu").data_ptr(), out.data_ptr(), n, None) == 0
+    return out
+
+
+def _poseidon_params(flavour):
+    from crypto3_zk_tpu_torch.ops import nil_poseidon as NPO
+    from crypto3_zk_tpu_torch.ops import poseidon as PO
+    if flavour == "nil":
+        return NPO.get_params(TP.PALLAS_FQ)
+    return PO.get_params({"original": TP.BLS12_381_FR,
+                          "original12": BLS}[flavour])
+
+
+@pytest.mark.parametrize("flavour", ["original", "nil", "original12"])
+def test_poseidon_kernel_matches_its_plain_version(entry, flavour):
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    pp = _poseidon_params(flavour)
+    fs = pp.fs
+    for n in (1, 33):
+        state = _rand(fs, (3, n), 40 + n)
+        ins = (state[:, 0], state[:, 1], state[:, 2])
+        got = _poseidon(entry, pp, ins)
+        assert torch.equal(got, HH.poseidon_permute_plain(pp, ins))
+    # against the scalar permutation on Python integers
+    mod = __import__(type(pp).__module__, fromlist=["permute_host"])
+    cols = [TL.decode(fs, got[:, i]) for i in range(3)]
+    vals = [TL.decode(fs, state[:, i]) for i in range(3)]
+    for lane in (0, 1, 2, 32):
+        assert [c[lane] for c in cols] == mod.permute_host(
+            pp, [v[lane] for v in vals])
+
+
+@pytest.mark.parametrize("flavour", ["original", "nil"])
+def test_poseidon_kernel_merkle_forms(entry, flavour):
+    """Strided planes (a level's even and odd digests), the zero capacity
+    element, the sponge's absorb planes and the element-0-only output."""
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    pp = _poseidon_params(flavour)
+    fs = pp.fs
+    level = _rand(fs, (70,), 7)
+    ins = (level[:, 0::2], level[:, 1::2], None)
+    got = _poseidon(entry, pp, ins, lane0_only=True)
+    assert torch.equal(got, HH.poseidon_permute_plain(pp, ins,
+                                                      lane0_only=True))
+    state = _rand(fs, (3, 35), 8)
+    ins = (state[:, 0], state[:, 1], state[:, 2])
+    rows = _rand(fs, (2, 35), 9)
+    for adds in ((rows[:, 0], rows[:, 1]), (rows[:, 0], None)):
+        for lane0_only in (False, True):
+            got = _poseidon(entry, pp, ins, adds, lane0_only)
+            assert torch.equal(got, HH.poseidon_permute_plain(
+                pp, ins, adds, lane0_only))
+    nw, consts = K.field_consts(fs)
+    ptrs, strides = HH.plane_args(ins, (None, None))
+    bad = HH._schedule(pp, False)
+    bad[5] = 2
+    assert entry("zk_poseidon_permute")(
+        nw, consts, ptrs, strides, bad, HH._const_words(pp, "cpu").data_ptr(),
+        got.data_ptr(), 35, None) != 0

@@ -67,7 +67,7 @@ def test_chunked_batch_inverse(size):
     vals = [rng.randrange(1, tfs.p) for _ in range(size)]
     vals[0] = tfs.p - 1
     before = dict(HM.LAUNCHES)
-    inv = TMA._batch_inverse_chunked(tfs, TL.encode(tfs, vals, "cpu"))
+    inv = HM.batch_inverse_chunked(tfs, TL.encode(tfs, vals, "cpu"))
     assert TL.decode(tfs, inv) == [pow(v, -1, tfs.p) for v in vals]
     assert HM.LAUNCHES == before          # nothing is launched on the CPU
 
@@ -79,10 +79,10 @@ def test_chunked_batch_inverse_never_reaches_the_fermat_chain(monkeypatch):
     monkeypatch.setattr(TL, "mont_pow_const", refuse)
     tfs = TCURVE.fq
     vals = list(range(1, 1301))
-    inv = TMA._batch_inverse_chunked(tfs, TL.encode(tfs, vals, "cpu"))
+    inv = HM.batch_inverse_chunked(tfs, TL.encode(tfs, vals, "cpu"))
     assert TL.decode(tfs, inv) == [pow(v, -1, tfs.p) for v in vals]
     empty = TL.zeros(tfs, (0,), "cpu")
-    assert TMA._batch_inverse_chunked(tfs, empty).shape == (tfs.nl, 0)
+    assert HM.batch_inverse_chunked(tfs, empty).shape == (tfs.nl, 0)
 
 
 @pytest.mark.parametrize("size", [1, 8, 64, 65, 512, HM.INV_TAIL_MAX])
