@@ -15,7 +15,14 @@ points a user calls:
   `FRIParams.build(degree_log=16, expand_factor=2, lambda_=40)`, a batch of 8
   polynomials of degree < 2^16 and a fixed batch of 4 of degree < 3*2^14,
   `commit` of both, `proof_eval` (twice, the second is reported) and
-  `verify_eval` by an independent verifier-side scheme. D0 has 2^18 points.
+  `verify_eval` by an independent verifier-side scheme. D0 has 2^18 points;
+- the Placeholder prover over bls12-381 Fr on a table of 2^16 rows
+  (`arithmetization.circuits.placeholder_chain`: an add/mul chain over 3
+  witness columns with copy constraints, and a range lookup into a table of
+  256; `tools/placeholder_fixture.py`), over LPC with the settings above:
+  `process_public` / `process_private`, `prove` (twice, the second is
+  reported) and `verify` by an independent scheme; then `ntt_hopper`
+  against its plain version at the longest transform the prove ran.
 
 It fails (non-zero exit, no result line) without a CUDA device, when a kernel
 does not build, launch or agree, when a kernel of a path was never launched
@@ -28,9 +35,10 @@ from the CPU plain path's.
 Output: one line per phase with its seconds; then the times of one whole 2^17
 transform as a JSON object; then, on a line of its own, a JSON object
 {"kernels": [...]} with every kernel's numbers (`launches` is the sum over
-both paths, `launches_groth16_prove`, `launches_lpc_path` and
-`launches_lpc_proof_eval` its parts); then the card's name and power limit;
-then the result line.
+the three paths, `launches_groth16_prove`, `launches_lpc_path`,
+`launches_lpc_proof_eval`, `launches_placeholder_path` and
+`launches_placeholder_prove` its parts); then the card's name and power
+limit; then the result line.
 
 `--kernels-only` stops after the kernel checks, for a quick look at a kernel
 edit: it drives no main path, so its `kernels` line carries no `launches`
@@ -471,8 +479,8 @@ def reset_launch_counts() -> None:
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
     from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
-    for counts in (HF.LAUNCHES, HM.LAUNCHES, HM.ELEMENTS, HH.LAUNCHES,
-                   HH.ELEMENTS):
+    for counts in (HF.LAUNCHES, HF.LARGEST, HM.LAUNCHES, HM.ELEMENTS,
+                   HH.LAUNCHES, HH.ELEMENTS):
         for name in counts:
             counts[name] = 0
 
@@ -483,6 +491,7 @@ def reset_launch_counts() -> None:
 
 GROTH16_KERNELS = ("mont_mul", "ntt_rows", "inv_scans", "mul3", "inv_tail")
 LPC_KERNELS = GROTH16_KERNELS + ("poseidon",)
+PLACEHOLDER_KERNELS = LPC_KERNELS
 
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
          "gamma": 0x456789A, "delta": 0x56789AB}
@@ -679,6 +688,137 @@ def lpc_path(torch) -> tuple[dict, dict]:
     return counts, per_proof
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the Placeholder path (process -> prove -> verify)
+# ---------------------------------------------------------------------------
+
+PLACEHOLDER_LOG2_ROWS = 16   # the table: 2^16 rows, 2^16 - 6 usable
+
+
+def small_agreement_placeholder(torch):
+    """At 2^4 rows (a table of 4, lambda 4, Poseidon trees) the card's
+    Placeholder proof and next challenge equal the CPU plain path's, and
+    the proof verifies."""
+    from crypto3_zk_tpu_torch.convert import placeholder_proof_as_plain
+    from crypto3_zk_tpu_torch.tools.placeholder_fixture import PlaceholderRun
+
+    got = []
+    for device in ("cuda", "cpu"):
+        run = PlaceholderRun(4, device, lambda_=4, table_bits=2)
+        run.preprocess()
+        proof, challenge = run.prove()
+        got.append((placeholder_proof_as_plain(proof), challenge))
+    if got[0] != got[1]:
+        raise AssertionError("card and CPU Placeholder proofs differ")
+    ok, challenge = run.verify(proof)
+    if not ok or challenge != got[0][1]:
+        raise AssertionError("small Placeholder proof rejected")
+
+
+def placeholder_path(torch) -> tuple[dict, dict, int]:
+    """The Placeholder path at 2^16 rows. Returns (launch counts of the
+    whole path, launch counts of the second prove alone, the longest
+    transform the prove ran)."""
+    import copy
+    from crypto3_zk_tpu_torch.commitments.fri import PhaseClock
+    from crypto3_zk_tpu_torch.models.placeholder import common as PC
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    from crypto3_zk_tpu_torch.tools.placeholder_fixture import PlaceholderRun
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = PlaceholderRun(PLACEHOLDER_LOG2_ROWS, "cuda")
+    desc = run.desc
+    log(f"placeholder: placeholder_chain, {desc.rows_amount} rows "
+        f"({desc.usable_rows_amount} usable), {desc.witness_columns} "
+        f"witness / {desc.public_input_columns} public / "
+        f"{desc.constant_columns} constant / {desc.selector_columns} "
+        f"selector columns, {len(run.cs.copy_constraints)} copy "
+        f"constraints, lookup table of {1 << run.table_bits}, over "
+        f"{run.fs.name}, D0 = "
+        f"{run.fri_params.D[0].n}, lambda 40: circuit "
+        f"{run.seconds['circuit']:.2f} s")
+    clock = PhaseClock("cuda")
+    run.preprocess(clock)
+    log("placeholder process_public: "
+        f"{run.seconds['process_public']:.3f} s ["
+        + ", ".join(f"{k} {v:.3f}" for k, v in clock.seconds.items())
+        + f"], process_private {run.seconds['process_private']:.3f} s")
+    for attempt in ("first", "second"):
+        before = launch_counts()
+        clock = PhaseClock("cuda")
+        t0 = time.perf_counter()
+        proof, challenge = run.prove(clock)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"placeholder prove ({attempt}): {dt:.3f} s ["
+            + ", ".join(f"{k} {v:.3f}" for k, v in clock.seconds.items())
+            + f"] peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    per_prove = {k: v - before[k] for k, v in launch_counts().items()}
+    longest = HF.LARGEST["ntt_hopper"]
+    log(f"kernel launches in the second prove: {per_prove}; longest "
+        f"transform 2^{longest.bit_length() - 1}; quotient chunks "
+        f"{len(proof.eval_proof.eval_proof.z.z[PC.QUOTIENT_BATCH])}")
+
+    t0 = time.perf_counter()
+    ok, verifier_challenge = run.verify(proof)
+    log(f"placeholder verify: {time.perf_counter() - t0:.2f} s -> {ok}")
+    counts = launch_counts()
+    log(f"kernel launches on the Placeholder path (preprocess, two proves, "
+        f"verify): {counts}")
+    log(f"field elements the inversion and hash launches ran on: "
+        f"{ {**HM.ELEMENTS, **HH.ELEMENTS} }")
+    if not ok:
+        raise AssertionError("the Placeholder verifier rejected the proof")
+    if challenge != verifier_challenge:
+        raise AssertionError("prover and verifier transcripts differ")
+    log("placeholder transcripts: same next challenge")
+    idle = [k for k in PLACEHOLDER_KERNELS if per_prove[k] <= 0]
+    if idle:
+        raise AssertionError(f"the Placeholder prove never launched {idle}")
+
+    t0 = time.perf_counter()
+    wrong = [[(run.public_input[0][0] + 1) % run.fs.p]]
+    if run.verify(proof, wrong)[0]:
+        raise AssertionError("the verifier accepted a wrong public input")
+    log(f"placeholder verify with public input + 1: rejected "
+        f"({time.perf_counter() - t0:.2f} s)")
+    bad = copy.deepcopy(proof)
+    z = bad.eval_proof.eval_proof.z.z
+    z[PC.VARIABLE_VALUES_BATCH][0][0] = \
+        (z[PC.VARIABLE_VALUES_BATCH][0][0] + 1) % run.fs.p
+    t0 = time.perf_counter()
+    if run.verify(bad)[0]:
+        raise AssertionError("the verifier accepted a changed opened value")
+    log(f"placeholder verify with one opened value changed: rejected "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return counts, per_prove, longest
+
+
+def check_longest_transform(torch, n: int) -> None:
+    """`ntt_hopper` against its plain version, forward and inverse, at the
+    longest transform the Placeholder prove ran."""
+    from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+
+    fs = P.BLS12_381_FR
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2019)
+    x = rand_field(torch, fs, (n,), gen)
+    for inverse in (False, True):
+        got = HF.ntt_hopper(fs, x, inverse)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, HF.ntt_plain(fs, x, inverse))
+        log(f"  ntt_hopper {fs.name} 2^{n.bit_length() - 1} "
+            f"{'inverse' if inverse else 'forward'}: max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"ntt_hopper disagrees with its plain "
+                                 f"version at {n}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -723,12 +863,21 @@ def main(argv=None) -> int:
         log(f"small LPC proof, card against CPU: equal: "
             f"{time.perf_counter() - t0:.2f} s")
         lpc_counts, lpc_per_proof = lpc_path(torch)
+        t0 = time.perf_counter()
+        small_agreement_placeholder(torch)
+        log(f"small Placeholder proof, card against CPU: equal: "
+            f"{time.perf_counter() - t0:.2f} s")
+        pl_counts, pl_per_prove, longest = placeholder_path(torch)
+        check_longest_transform(torch, longest)
         for row in rows:
             name = row["name"]
-            row["launches"] = counts[name] + lpc_counts[name]
+            row["launches"] = counts[name] + lpc_counts[name] \
+                + pl_counts[name]
             row["launches_groth16_prove"] = counts[name]
             row["launches_lpc_path"] = lpc_counts[name]
             row["launches_lpc_proof_eval"] = lpc_per_proof[name]
+            row["launches_placeholder_path"] = pl_counts[name]
+            row["launches_placeholder_prove"] = pl_per_prove[name]
     log(json.dumps({"ntt_2p17_ms": transforms}))
     log(json.dumps({"kernels": rows}))
     log(f"total: {time.perf_counter() - t_all:.2f} s")

@@ -110,6 +110,21 @@ class LPCScheme(PolysEvaluator):
     def mark_batch_as_fixed(self, index: int):
         self._batch_fixed[index] = True
 
+    def fork(self) -> "LPCScheme":
+        """A prover-side scheme that shares this one's committed batches
+        marked fixed (their polynomials and trees, read only) and holds
+        nothing else: what each proof starts from, as the reference hands
+        every proof a copy of the preprocessed scheme."""
+        out = LPCScheme(self.fri_params)
+        for k, fixed in self._batch_fixed.items():
+            if fixed and k in self._trees:
+                out._polys[k] = list(self._polys[k])
+                out._trees[k] = self._trees[k]
+                out._batch_fixed[k] = True
+                out.state_commited(k)
+        out._omega_pows = self._omega_pows
+        return out
+
     # --- setup / preprocess (lpc.hpp:82-106) ---
     def preprocess(self, transcript: Transcript) -> dict[int, list[int]]:
         etha = transcript.challenge(self.fs)

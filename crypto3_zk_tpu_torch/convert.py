@@ -7,22 +7,30 @@ reference's objects hands them over as plain Python and numpy values:
 `{f.name: getattr(key, f.name) for f in dataclasses.fields(key)}`.
 Curves and fields travel by name, constraint systems as their constraint
 term lists, polynomials as their digit arrays, FRI parameters as the
-`get_params()` dict, proofs as plain ints and bytes (`fri_proof_fields`),
-which compare with `==` (`fri_proof_as_plain`, `lpc_proof_as_plain`).
-Poseidon parameters are not carried: both packages derive them from the
-field.
+`get_params()` dict, proofs as plain ints and bytes (`fri_proof_fields`,
+`placeholder_proof_fields`), which compare with `==` (`fri_proof_as_plain`,
+`lpc_proof_as_plain`, `placeholder_proof_as_plain`). PLONK circuits are
+rebuilt node by node from any objects with the reference's attributes
+(`plonk_from_reference`). Poseidon parameters are not carried: both
+packages derive them from the field.
 """
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
 
+from .arithmetization import plonk as PK
 from .arithmetization import r1cs as R
+from .commitments import batched as B
 from .commitments import fri as FRI
+from .commitments import lpc as LPC
 from .fields import curves as CV
 from .fields import mnt as MNT
 from .fields.params import FIELDS
 from .models import groth16 as G16
+from .models.placeholder import common as PC
 from .ops import limbs as L
 from .poly.polynomial import Poly, PolyDFS
 
@@ -173,3 +181,91 @@ def fri_proof_as_plain(proof):
 def lpc_proof_as_plain(proof):
     """Either package's `LPCProof` as nested tuples: (z table, FRI proof)."""
     return (_plain(proof.z.z), fri_proof_as_plain(proof.fri_proof))
+
+
+# ---------------------------------------------------------------------------
+# PLONK circuits and Placeholder proofs
+# ---------------------------------------------------------------------------
+
+def expr_from_reference(e) -> PK.Expr:
+    """A reference expression tree (`Var`, `Const`, `BinOp`, `Pow` nodes,
+    matched by class name) as the port's."""
+    kind = type(e).__name__
+    if kind == "Var":
+        return PK.Var(int(e.index), int(e.rotation), str(e.type))
+    if kind == "Const":
+        return PK.Const(int(e.v))
+    if kind == "BinOp":
+        return PK.BinOp(e.op, expr_from_reference(e.l),
+                        expr_from_reference(e.r))
+    if kind == "Pow":
+        return PK.Pow(expr_from_reference(e.base), int(e.exp))
+    raise TypeError(f"not an expression node: {kind}")
+
+
+def plonk_from_reference(cs, assignment, desc):
+    """The port's (ConstraintSystem, Assignment, TableDescription) from the
+    reference's objects of the same names."""
+    var = expr_from_reference
+    out_cs = PK.ConstraintSystem(
+        gates=[PK.Gate(int(g.selector_index), [var(c) for c in g.constraints])
+               for g in cs.gates],
+        copy_constraints=[(var(a), var(b)) for a, b in cs.copy_constraints],
+        lookup_gates=[PK.LookupGate(int(g.tag_index), [
+            PK.LookupConstraint(int(c.table_id),
+                                [var(e) for e in c.lookup_input])
+            for c in g.constraints]) for g in cs.lookup_gates],
+        lookup_tables=[PK.LookupTable(
+            int(t.tag_index), int(t.columns_number),
+            [[var(v) for v in opt] for opt in t.lookup_options])
+            for t in cs.lookup_tables],
+        public_input_sizes=[int(x) for x in cs.public_input_sizes])
+
+    def cols(cc):
+        return [[int(x) for x in c] for c in cc]
+
+    out_assignment = PK.Assignment(
+        cols(assignment.witnesses), cols(assignment.public_inputs),
+        cols(assignment.constants), cols(assignment.selectors))
+    out_desc = PK.TableDescription(
+        desc.witness_columns, desc.public_input_columns,
+        desc.constant_columns, desc.selector_columns,
+        desc.usable_rows_amount, desc.rows_amount)
+    return out_cs, out_assignment, out_desc
+
+
+def placeholder_proof_fields(proof) -> dict:
+    """Either package's `PlaceholderProof` over LPC (duck-typed) as plain
+    dicts and lists: `{"commitments": {batch: root}, "challenge",
+    "z": {batch: [[value per point] per polynomial]}, "fri_proof":
+    fri_proof_fields(...)}`."""
+    ev = proof.eval_proof
+    return {
+        "commitments": {int(k): v for k, v in proof.commitments.items()},
+        "challenge": int(ev.challenge),
+        "z": {int(k): [[int(x) for x in row] for row in rows]
+              for k, rows in ev.eval_proof.z.z.items()},
+        "fri_proof": fri_proof_fields(ev.eval_proof.fri_proof),
+    }
+
+
+PORT_MODULES = types.SimpleNamespace(common=PC, lpc=LPC, batched=B, fri=FRI)
+
+
+def placeholder_proof_from_fields(fields: dict, mod=PORT_MODULES):
+    """A `PlaceholderProof` from `placeholder_proof_fields`, built from the
+    modules in `mod` (a namespace with `common`, `lpc`, `batched` and `fri`:
+    this port's by default; a test passes the reference's)."""
+    z = mod.batched.EvalStorage()
+    z.z = {k: [list(row) for row in rows] for k, rows in fields["z"].items()}
+    lpc_proof = mod.lpc.LPCProof(
+        z=z, fri_proof=fri_proof_from_fields(fields["fri_proof"], mod.fri))
+    return mod.common.PlaceholderProof(
+        commitments=dict(fields["commitments"]),
+        eval_proof=mod.common.EvalProof(challenge=fields["challenge"],
+                                        eval_proof=lpc_proof))
+
+
+def placeholder_proof_as_plain(proof):
+    """Either package's `PlaceholderProof` as nested tuples."""
+    return _plain(placeholder_proof_fields(proof))

@@ -25,7 +25,9 @@ Counterpart of `ops/pallas_field.py` of the JAX package.
 
 Each wrapper runs its plain PyTorch version only for a tensor that lies on
 the CPU. On a CUDA tensor it launches the kernel or raises. `LAUNCHES`
-counts kernel launches, one per launch and nowhere else.
+counts kernel launches, one per launch and nowhere else; `LARGEST` keeps the
+longest `ntt_hopper` transform (`chip_smoke.py` checks the kernels at that
+length). Both are measurement state only: nothing in the port reads them.
 """
 from __future__ import annotations
 
@@ -40,23 +42,250 @@ from ..fields.params import MASK, W, FieldSpec
 from . import limbs as L
 
 LAUNCHES = {"mont_mul": 0, "ntt_rows": 0}
+LARGEST = {"ntt_hopper": 0}   # the longest transform, in elements
 
 _MAX_ROW_LOG = 10     # a row of 2^10 elements of 12 words fills 48 KB
 
 
 # ---------------------------------------------------------------------------
 # plain versions: int64 arithmetic on digit planes (a 16x16-bit product does
-# not fit a signed int32); they return int32
+# not fit a signed int32); they return int32, the same digits as the kernels.
+#
+# Two forms, chosen by the number of lanes. Few lanes (up to _FEW_LANES): the
+# time goes to library calls, so a fixed, small number of whole-tensor calls
+# per operation, whatever the digit count: the schoolbook product as one outer
+# product, the Montgomery reduction as two float64 matrix products against
+# Toeplitz tables of constants (m = (ab mod R)(-1/p) mod R, then ab + m p),
+# carries settled in whole-tensor passes and a carry lookahead. Many lanes:
+# the time goes to memory, so the digit-serial forms, which touch one digit
+# row at a time. `tools/time_plain.py` times both: on one CPU thread the
+# whole-tensor product wins up to 2^9 lanes and loses from 2^10 on (2.4x
+# slower at 2^12); on an H100 it wins up to 2^16 lanes and loses at 2^20
+# (14.5 against 8.9 ms). The plain versions serve the CPU, so the CPU's
+# crossover sets the bound; at 2^20 lanes, where the card holds kernel 1
+# against them, the digit-serial forms are the faster ones there too. Both
+# forms give the same digits.
 # ---------------------------------------------------------------------------
 
-def _p_col(fs: FieldSpec, ref: torch.Tensor) -> torch.Tensor:
-    pl = torch.from_numpy(fs.p_limbs.astype(np.int64)).to(ref.device)
-    return pl.reshape((fs.nl,) + (1,) * (ref.dim() - 1))
+_FEW_LANES = 512
+
+
+def _digits(x: int, n: int) -> list[int]:
+    return [(x >> (W * j)) & MASK for j in range(n)]
+
+
+def _toeplitz(digits: list[int], rows: int) -> np.ndarray:
+    """(rows, len(digits)) table T[k, i] = digits[k - i], 0 outside: the
+    product of a digit column with these digits is T times the column."""
+    n = len(digits)
+    out = np.zeros((rows, n), dtype=np.int64)
+    for k in range(rows):
+        for i in range(n):
+            if 0 <= k - i < n:
+                out[k, i] = digits[k - i]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_consts(fs: FieldSpec, device: str):
+    """Per-field tables of the plain versions, cached per device: the
+    Toeplitz tables of -1/p mod R (low half) and of p, and the digit columns
+    of p, of 1 and of 2^(16 (NL+1)) - k p."""
+    nl = fs.nl
+    nprime = (-pow(fs.p, -1, fs.R)) % fs.R
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return {
+        "nprime": t(_toeplitz(_digits(nprime, nl), nl).astype(np.float64)),
+        "p_toeplitz": t(_toeplitz(_digits(fs.p, nl), 2 * nl)
+                        .astype(np.float64)),
+        "p": t(np.array(_digits(fs.p, nl), dtype=np.int64)[:, None]),
+        "one": t(np.array(_digits(1, nl), dtype=np.int64)[:, None]),
+        "minus_p": t(np.array(_digits((fs.R << W) - fs.p, nl + 1),
+                              dtype=np.int64)[:, None]),
+        # column k: 2^(16 (NL+1)) - k p, k = 0 .. 4 (k = 0 as 2^(16 (NL+1)),
+        # which the NL + 1 digits drop, so the column is 0 and H stays H)
+        "minus_kp": t(np.array([_digits(((fs.R << W) - k * fs.p)
+                                        % (fs.R << W), nl + 1)
+                                for k in range(5)], dtype=np.int64).T),
+    }
+
+
+def _carry_pass(t: torch.Tensor) -> torch.Tensor:
+    """t: lazy non-negative digits along axis 0, the top one a scratch
+    digit that may grow: every digit below the top keeps its low 16 bits
+    and hands the rest to the digit above. In place; the value is
+    unchanged."""
+    c = t[:-1] >> W
+    t[:-1] &= MASK
+    t[1:] += c
+    return t
+
+
+def _settle(t: torch.Tensor, bound: int) -> torch.Tensor:
+    """`_carry_pass` until each digit below the top is at most 2^16, for
+    digits at most `bound` (the number of passes follows from it)."""
+    while bound > 1 << W:
+        _carry_pass(t)
+        bound = MASK + (bound >> W)
+    return t
+
+
+def _resolve(t: torch.Tensor) -> torch.Tensor:
+    """t: digits along axis 0, each in [0, 2^16] below the scratch top one.
+    Makes them exact 16-bit digits and adds the carry out to the top, by a
+    carry lookahead: a digit of 2^16 makes a carry, 0xFFFF passes the one
+    below on, any other stops it, so the carry out of digit j is made by the
+    highest digit at or below j that is not 0xFFFF. In place."""
+    lo = t[:-1]
+    pos = torch.arange(lo.shape[0], device=t.device)
+    pos = pos.reshape((-1,) + (1,) * (t.dim() - 1))
+    key = torch.where(lo != MASK, 2 * pos + (lo >> W), -1)
+    carry = torch.cummax(key, dim=0).values.clamp(min=0) & 1
+    t[1:] += carry
+    t[:-1] &= MASK
+    return t
+
+
+def _exact(t: torch.Tensor, bound: int) -> torch.Tensor:
+    """t (rows, ...) lazy digits at most `bound`, with a zero scratch row
+    appended: the exact digits, and in the last row the carry out."""
+    t = torch.cat([t, torch.zeros_like(t[:1])])
+    return _resolve(_settle(t, bound))
+
+
+def _select_low(fs: FieldSpec, pair: torch.Tensor,
+                take_second: torch.Tensor) -> torch.Tensor:
+    """pair (rows, 2, ...) exact digits of two candidates: the low NL
+    digits of the second where `take_second`, else of the first."""
+    nl = fs.nl
+    return torch.where(take_second[None], pair[:nl, 1],
+                       pair[:nl, 0]).to(torch.int32)
+
+
+def _flat_pair(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """Both operands as (NL, lanes) int64 over their broadcast batch shape,
+    and that shape."""
+    bshape = _broadcast_shape(a.shape[1:], b.shape[1:])
+    shape = (fs.nl,) + bshape
+    return (a.to(torch.int64).expand(shape).reshape(fs.nl, -1),
+            b.to(torch.int64).expand(shape).reshape(fs.nl, -1), shape)
+
+
+def add_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """a + b, less p once if the sum is at least p."""
+    a, b, shape = _flat_pair(fs, a, b)
+    if a.shape[1] > _FEW_LANES:
+        s, c = _carry_sweep(a + b)
+        return _cond_sub_p(fs, s, c).to(torch.int32).reshape(shape)
+    c = _plain_consts(fs, str(a.device))
+    s = torch.cat([a + b, torch.zeros_like(a[:1])])         # NL + 1 digits
+    pair = _exact(torch.stack([s, s + c["minus_p"]], dim=1), 3 * MASK)
+    # a carry out of s + 2^(16 (NL+1)) - p means s >= p
+    return _select_low(fs, pair, pair[-1, 1] > 0).reshape(shape)
+
+
+def sub_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """a - b, plus p if a < b: a + (2^(16 NL) - b) carries out iff a >= b."""
+    a, b, shape = _flat_pair(fs, a, b)
+    d = a + (MASK - b)
+    d[0] += 1
+    if a.shape[1] > _FEW_LANES:
+        d, c = _carry_sweep(d)
+        e, _ = _carry_sweep(d + _plain_consts(fs, str(d.device))["p"])
+        return torch.where((c == 0)[None], e, d).to(torch.int32) \
+            .reshape(shape)
+    c = _plain_consts(fs, str(a.device))
+    pair = _exact(torch.stack([d, d + c["p"]], dim=1), 3 * MASK + 1)
+    return _select_low(fs, pair, pair[fs.nl, 0] == 0).reshape(shape)
+
+
+def _schoolbook(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(NL, lanes) digits -> the 2NL lazy columns of ab, each below NL 2^32:
+    one outer product written with a row stride of 2NL + 1 and read back
+    with a stride of 2NL, which puts a_i b_j in column i + j, and one sum."""
+    nl, lanes = a.shape
+    z = torch.zeros((nl, 2 * nl + 1, lanes), dtype=torch.int64,
+                    device=a.device)
+    torch.mul(a[:, None], b[None], out=z[:, :nl])
+    return z.view(-1, lanes)[:2 * nl * nl].view(nl, 2 * nl, lanes).sum(0)
+
+
+def _times_const(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """table (rows, NL) float64 of digits times x (NL, lanes) int64 lazy
+    digits, as one float64 matrix product: exact while every sum stays
+    below 2^53, which the callers' bounds keep (at most NL 2^16 times the
+    largest entry of x)."""
+    return (table @ x.to(torch.float64)).to(torch.int64)
+
+
+def _reduce_lanes(fs: FieldSpec, t: torch.Tensor, terms: int = 1):
+    """T R^-1 mod p for T given as 2NL lazy int64 columns (lanes last),
+    T a sum of `terms` products of residues below p, each column below
+    terms NL 2^32. Montgomery's reduction by whole products: m = T (-1/p)
+    mod R (exactly the number digit-serial CIOS builds a digit at a time),
+    H = (T + m p) / R < (terms p / R + 1) p, less p as often as H allows.
+    With one term that is CIOS's single conditional subtract, so a product
+    agrees with the kernel's for any digit inputs."""
+    nl = fs.nl
+    c = _plain_consts(fs, str(t.device))
+    # one pass brings the columns under 2^23, so the products with the
+    # constants below stay exact in float64
+    t = _carry_pass(torch.cat([t, torch.zeros_like(t[:1])]))
+    col = MASK + (terms * nl * MASK * MASK >> W)
+    # m, exact mod R: the carries out of the low NL digits are dropped
+    m = _exact(_times_const(c["nprime"], t[:nl]), nl * MASK * col)[:nl]
+    # T + m p: its low NL digits settle to 0 or to R exactly (at most 2^16
+    # each, a multiple of R, below 2R), so R's carry is "any nonzero"
+    u = t
+    u[:2 * nl] += _times_const(c["p_toeplitz"], m)
+    u = _settle(u, col + nl * MASK * MASK)
+    h = u[nl:]                                              # NL + 1 digits
+    h[0] += (u[:nl] != 0).any(0)
+    kmax = 1 + terms * fs.p // fs.R
+    cands = _exact(h[:, None] + c["minus_kp"][:, :kmax + 1, None], 2 << W)
+    # a carry out of H + 2^(16 (NL+1)) - k p means H >= k p
+    k = (cands[-1, 1:] > 0).sum(0)
+    return cands[:nl].gather(1, k.expand(nl, 1, -1)).squeeze(1) \
+        .to(torch.int32)
+
+
+def _mont_mul_lanes(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """a b R^-1 mod p for (NL, lanes) int64 digits."""
+    return _reduce_lanes(fs, _schoolbook(a, b))
+
+
+def mont_matvec_plain(fs: FieldSpec, table: torch.Tensor,
+                      x: torch.Tensor) -> torch.Tensor:
+    """sum_j M[i][j] x[j] R^-1 mod p for a constant k x k matrix M given by
+    `matvec_table(fs, M digits)` and x (NL, k, lanes): one float64 product
+    against the matrix's digits and one reduction per output, which give
+    the same residues as k^2 Montgomery products and the adds."""
+    nl, k, lanes = x.shape
+    t = table @ x.transpose(0, 1).reshape(k * nl, lanes).to(torch.float64)
+    t = t.to(torch.int64).reshape(k, 2 * nl, lanes).transpose(0, 1)
+    return _reduce_lanes(fs, t.reshape(2 * nl, k * lanes), k) \
+        .reshape(nl, k, lanes)
+
+
+def matvec_table(digits: np.ndarray) -> np.ndarray:
+    """(NL, k, k) digits of a constant matrix M -> the (k 2NL, k NL)
+    float64 block table whose product with the stacked digits of x gives
+    the lazy columns of every sum_j M[i][j] x[j]."""
+    nl, k, _ = digits.shape
+    out = np.zeros((k * 2 * nl, k * nl))
+    for i in range(k):
+        for j in range(k):
+            out[i * 2 * nl:(i + 1) * 2 * nl, j * nl:(j + 1) * nl] = \
+                _toeplitz([int(d) for d in digits[:, i, j]], 2 * nl)
+    return out
 
 
 def _carry_sweep(t: torch.Tensor):
     """Normalize lazy digits (any non-negative int64) along axis 0 to 16
-    bits; returns (digits, carry_out)."""
+    bits, one digit row after another; returns (digits, carry_out)."""
     out = torch.empty_like(t)
     c = torch.zeros_like(t[0])
     for j in range(t.shape[0]):
@@ -68,52 +297,37 @@ def _carry_sweep(t: torch.Tensor):
 
 def _cond_sub_p(fs: FieldSpec, s: torch.Tensor, carry: torch.Tensor):
     """s: normalized digits (int64) with a carry beyond; subtract p once if
-    s >= p or the carry is set."""
-    d, c = _carry_sweep(s + (MASK - _p_col(fs, s)) + _first_digit_one(s))
-    # s + (2^(16 NL) - p): a carry out means s >= p
-    use_d = (carry > 0) | (c > 0)
-    return torch.where(use_d[None], d, s)
+    s >= p or the carry is set: s + (2^(16 NL) - p) carries out iff s >= p."""
+    consts = _plain_consts(fs, str(s.device))
+    d, c = _carry_sweep(s + (MASK - consts["p"]) + consts["one"])
+    return torch.where(((carry > 0) | (c > 0))[None], d, s)
 
 
-def _first_digit_one(ref: torch.Tensor) -> torch.Tensor:
-    one = torch.zeros((ref.shape[0],) + (1,) * (ref.dim() - 1),
-                      dtype=torch.int64, device=ref.device)
-    one[0] = 1
-    return one
-
-
-def add_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
-    s, c = _carry_sweep(a.to(torch.int64) + b.to(torch.int64))
-    return _cond_sub_p(fs, s, c).to(torch.int32)
-
-
-def sub_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
-    # a + (2^(16 NL) - b): a carry out means a >= b
-    t = a.to(torch.int64) + (MASK - b.to(torch.int64))
-    d, c = _carry_sweep(t + _first_digit_one(t))
-    e, _ = _carry_sweep(d + _p_col(fs, d))
-    return torch.where((c == 0)[None], e, d).to(torch.int32)
-
-
-def mont_mul_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
-    """Digit-level CIOS with lazy carries in int64: the schoolbook product
-    accumulates into 2NL columns, each of the NL reduction steps clears the
-    lowest column, one carry sweep and a conditional subtract finish."""
+def _mont_mul_cios(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """Digit-serial CIOS with lazy carries for (NL, lanes) int64 digits: the
+    schoolbook product accumulates into 2NL columns, each of the NL
+    reduction steps clears the lowest column, one carry sweep and a
+    conditional subtract finish."""
     nl = fs.nl
-    bshape = _broadcast_shape(a.shape[1:], b.shape[1:])
-    a = a.to(torch.int64).expand((nl,) + bshape)
-    b = b.to(torch.int64).expand((nl,) + bshape)
-    t = torch.zeros((2 * nl + 1,) + bshape, dtype=torch.int64, device=a.device)
+    t = torch.zeros((2 * nl + 1, a.shape[1]), dtype=torch.int64,
+                    device=a.device)
     for i in range(nl):
-        t[i:i + nl] += a[i][None] * b
-    pl = _p_col(fs, a)
-    ninv = fs.ninv16
+        t[i:i + nl] += a[i] * b
+    pl = _plain_consts(fs, str(a.device))["p"]
     for i in range(nl):
-        m = (t[i] * ninv) & MASK
-        t[i:i + nl] += m[None] * pl
+        m = (t[i] * fs.ninv16) & MASK
+        t[i:i + nl] += m * pl
         t[i + 1] += t[i] >> W
     digits, c = _carry_sweep(t[nl:2 * nl])
     return _cond_sub_p(fs, digits, t[2 * nl] + c).to(torch.int32)
+
+
+def mont_mul_plain(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+    """a b R^-1 mod p over digit planes that broadcast over batch dims."""
+    a, b, shape = _flat_pair(fs, a, b)
+    if a.shape[1] > _FEW_LANES:
+        return _mont_mul_cios(fs, a, b).reshape(shape)
+    return _mont_mul_lanes(fs, a, b).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +657,9 @@ def ntt_hopper_raw(fs: FieldSpec, x: torch.Tensor,
 def ntt_hopper(fs: FieldSpec, x: torch.Tensor, inverse: bool = False,
                rows=ntt_rows_hopper) -> torch.Tensor:
     """Full NTT of x (NL, N); the inverse's 1/N factor rides in the last
-    launch. `ntt_plain` is this with the plain row transform."""
+    launch. `ntt_plain` is this with the plain row transform. `LARGEST`
+    keeps the longest N seen."""
+    LARGEST["ntt_hopper"] = max(LARGEST["ntt_hopper"], x.shape[1])
     scale = _inverse_scale(fs, x.shape[1], str(x.device)) \
         if inverse and x.shape[1] > 1 else None
     return _transform(fs, x, inverse, scale, rows)

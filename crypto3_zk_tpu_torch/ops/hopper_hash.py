@@ -39,7 +39,8 @@ import torch
 
 from .. import kernels as K
 from . import limbs as L
-from .hopper_field import add_plain, mont_mul_plain
+from .hopper_field import (add_plain, matvec_table, mont_matvec_plain,
+                           mont_mul_plain)
 
 LAUNCHES = {"poseidon": 0}
 ELEMENTS = {"poseidon": 0}
@@ -67,6 +68,15 @@ def _const_digits_np(pp) -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _const_digits(pp, device: str) -> torch.Tensor:
     return L.from_numpy(_const_digits_np(pp), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mds_table(pp, device: str) -> torch.Tensor:
+    """The MDS matrix (Montgomery form) as `mont_matvec_plain` takes it."""
+    rounds = len(pp.round_constants)
+    digits = _const_digits_np(pp)[:, rounds * 3:].reshape(pp.fs.nl, 3, 3)
+    return torch.from_numpy(matvec_table(digits.astype(np.int64))) \
+        .to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,7 +111,8 @@ def _sbox_plain(fs, x: torch.Tensor, alpha: int) -> torch.Tensor:
 def poseidon_permute_plain(pp, ins, adds=(None, None),
                            lane0_only: bool = False) -> torch.Tensor:
     """The permutation composed from plain modular adds and Montgomery
-    products round by round, as the reference composes it."""
+    products round by round, as the reference composes it (the MDS mix's
+    nine products and six adds as `mont_matvec_plain`, the same residues)."""
     fs = pp.fs
     n, device = _lanes(fs, ins, adds)
     zero = torch.zeros((fs.nl, n), dtype=torch.int32, device=device)
@@ -112,7 +123,7 @@ def poseidon_permute_plain(pp, ins, adds=(None, None),
     state = torch.stack(elems, dim=1)                       # (NL, 3, n)
     consts = _const_digits(pp, str(device))
     rounds = len(pp.round_constants)
-    mds = consts[:, rounds * 3:].reshape(fs.nl, 3, 3, 1)
+    mds = _mds_table(pp, str(device))
     lo, hi = pp.partial_rounds
     for r in range(rounds):
         rc = consts[:, r * 3:r * 3 + 3, None]               # (NL, 3, 1)
@@ -123,10 +134,9 @@ def poseidon_permute_plain(pp, ins, adds=(None, None),
                                state[:, 1:]], dim=1)
         else:
             state = _sbox_plain(fs, state, pp.alpha)
-        # out[i] = sum_j M[i][j] * state[j]: the nine products as one call
-        prod = mont_mul_plain(fs, mds, state[:, None])      # (NL, 3, 3, n)
-        state = add_plain(fs, add_plain(fs, prod[:, :, 0], prod[:, :, 1]),
-                          prod[:, :, 2])
+        # out[i] = sum_j M[i][j] * state[j]: the nine products and the adds
+        # as one product against M's digits and one reduction per output
+        state = mont_matvec_plain(fs, mds, state)
         if not pp.rc_first:
             state = add_plain(fs, state, rc)
     return state[:, 0].contiguous() if lane0_only else state

@@ -141,3 +141,24 @@ def coset_ntt(fs: FieldSpec, coeffs: torch.Tensor, g: int) -> torch.Tensor:
 
 def coset_intt(fs: FieldSpec, evals: torch.Tensor, g: int) -> torch.Tensor:
     return coset_scale(fs, ntt(fs, evals, inverse=True), g, inverse=True)
+
+
+def divide_by_vanishing(fs: FieldSpec, coeffs: torch.Tensor,
+                        n_rows: int) -> torch.Tensor:
+    """T = F / (x^n - 1) for F known divisible by the vanishing polynomial:
+    F evaluated on the coset g*D_m (where Z never vanishes), one batched
+    inverse of Z(g w^i) = g^n w^(i n) - 1, and back. coeffs: (NL, m) with
+    m > n_rows a power of two, on either device; returns (NL, m)
+    coefficients of T (the top n_rows are zero). On the card m is at most
+    the four-step's 2^20: a larger transform raises."""
+    m = coeffs.shape[-1]
+    assert m > n_rows and m & (m - 1) == 0
+    g = fs.generator
+    dev = coeffs.device
+    ev = coset_ntt(fs, coeffs, g)
+    wn = pow(get_plan(fs, _log2(m)).omega, n_rows, fs.p)
+    zv = L.mont_mul(fs, L.powers(fs, wn, m, dev),
+                    L.const_mont(fs, pow(g, n_rows, fs.p), (1,), dev))
+    zv = L.sub(fs, zv, L.ones_mont(fs, (m,), dev))
+    t_ev = L.mont_mul(fs, ev, L.batch_inverse(fs, zv, axis=1))
+    return coset_intt(fs, t_ev, g)

@@ -1,14 +1,19 @@
-"""Where one Groth16 prove, or one LPC `proof_eval`, spends its time on the
-GPU.
+"""Where one Groth16 prove, one LPC `proof_eval` or one Placeholder prove
+spends its time on the GPU.
 
-    python3 -m crypto3_zk_tpu_torch.tools.profile_prove [--lpc] [--out f.json]
+    python3 -m crypto3_zk_tpu_torch.tools.profile_prove [--lpc | --placeholder]
+        [--out f.json]
 
 By default it generates a key for the product-chain circuit of 2^16
 constraints over alt_bn128 (the size `chip_smoke.py` proves). With `--lpc`
 it builds the LPC deployment `chip_smoke.py` drives instead
 (`tools/lpc_fixture.py`: 12 polynomials of degree < 2^16 over bls12-381 Fr,
 D0 = 2^18, lambda 40, Poseidon trees) and commits both batches; "prove" below
-is then one `LPCScheme.proof_eval`. Either way it proves once to warm up
+is then one `LPCScheme.proof_eval`. With `--placeholder` it preprocesses the
+Placeholder deployment `chip_smoke.py` drives (`tools/placeholder_fixture.py`:
+`placeholder_chain` at 2^16 rows over bls12-381 Fr, D0 = 2^18, lambda 40,
+Poseidon trees), and "prove" is one Placeholder `prove`. Each way it proves
+once to warm up
 (kernel build, base encoding, cached tables), then proves three more times:
 
 1. plain, for the wall time and the prover's own phase seconds;
@@ -139,12 +144,42 @@ def _lpc_setup() -> tuple:
     return facts, prove, accept, phases
 
 
+def _placeholder_setup() -> tuple:
+    """The Placeholder workload, as `_groth16_setup`."""
+    from ..commitments.fri import PhaseClock
+    from .placeholder_fixture import PlaceholderRun
+
+    run = PlaceholderRun(LOG2_CONSTRAINTS, "cuda")
+    clock = PhaseClock("cuda")
+    run.preprocess(clock)
+    facts = {"workload": "placeholder_prove", "log2_rows": LOG2_CONSTRAINTS,
+             "domain_size": run.fri_params.D[0].n, "lambda": 40,
+             "setup_s": dict(run.seconds),
+             "process_public_phases_s": dict(clock.seconds)}
+
+    def prove():
+        return run.prove()[0]
+
+    def accept(proof):
+        return run.verify(proof)[0]
+
+    def phases():
+        clock = PhaseClock("cuda")
+        run.prove(clock)
+        return dict(clock.seconds)
+
+    return facts, prove, accept, phases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None)
-    ap.add_argument("--lpc", action="store_true",
-                    help="profile one LPC proof_eval instead of a Groth16 "
-                         "prove")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--lpc", action="store_true",
+                       help="profile one LPC proof_eval instead of a Groth16 "
+                            "prove")
+    which.add_argument("--placeholder", action="store_true",
+                       help="profile one Placeholder prove at 2^16 rows")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -153,8 +188,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
 
-    facts, prove, accept, phases_of = \
-        _lpc_setup() if args.lpc else _groth16_setup()
+    facts, prove, accept, phases_of = (
+        _lpc_setup() if args.lpc else
+        _placeholder_setup() if args.placeholder else _groth16_setup())
     _timed(prove)                                          # warm-up
     proof, wall = _timed(prove)
     phases = phases_of()

@@ -4,10 +4,12 @@ the JAX package: the same polynomials, points and transcript seed give equal
 roots, equal proofs (as plain ints and bytes), the same next challenge, and
 each package's verifier accepts the other's proof. Exact equality."""
 import copy
+import functools
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from crypto3_zk_tpu.commitments import batched as RB
 from crypto3_zk_tpu.commitments import fri as RFRI
@@ -23,6 +25,8 @@ from crypto3_zk_tpu_torch.commitments import proof_of_work as POW
 from crypto3_zk_tpu_torch.fields import params as TP
 from crypto3_zk_tpu_torch.poly.polynomial import Poly, PolyDFS
 from crypto3_zk_tpu_torch.transcript.fiat_shamir import Transcript
+
+import torch_threads  # noqa: F401  one torch thread a worker
 
 FS = TP.BLS12_381_FR
 SEED = bytes(range(10))
@@ -169,47 +173,69 @@ def test_fold_halves_the_degree():
 # LPC
 # ---------------------------------------------------------------------------
 
-def _lpc_pair(degree_log, with_fixed, seed=0xF121, with_reference=True):
-    """The fixture of `tests/test_fri_lpc.py::_lpc_fixture` in both
-    packages: the port's (scheme, verifier, proof, roots, tr, tv, clock)
-    and the reference's, on the same polynomials and points."""
+class _LPCRun:
+    """One package's LPC run on the fixture of
+    `tests/test_fri_lpc.py::_lpc_fixture`: the prover-side scheme, its
+    proof, the roots, the prover transcript's next challenge and, for the
+    port, the phase clock. `verifier()` makes a fresh verifier-side scheme
+    and transcript (a verifier is stateful, so every check takes its own)."""
+
+    def __init__(self, ref, polys, points, degree_log, with_fixed):
+        fri_mod, scheme_cls, tr_cls, fs = \
+            (RFRI, RLPC.LPCScheme, RT.Transcript, P.BLS12_381_FR) if ref \
+            else (FRI, LPC.LPCScheme, Transcript, FS)
+        self.fs, self.points, self.with_fixed = fs, points, with_fixed
+        self.scheme_cls, self.tr_cls = scheme_cls, tr_cls
+        self.params = fri_mod.FRIParams.build(
+            fs, degree_log=degree_log, expand_factor=2, lambda_=4,
+            merkle_hash="poseidon")
+        self.scheme = scheme_cls(self.params)
+        for k, batch in enumerate(polys):
+            self.scheme.append_to_batch(
+                k, batch if ref else [_carry(FS, pl) for pl in batch])
+        self.roots = {0: self.scheme.commit(0), 1: self.scheme.commit(1)}
+        self._points(self.scheme)
+        tr = tr_cls("keccak_256", SEED)
+        self.pre_data = None
+        if with_fixed:
+            self.scheme.mark_batch_as_fixed(1)
+            self.pre_data = self.scheme.preprocess(tr_cls("keccak_256", SEED))
+            self.scheme.setup(tr, self.pre_data)
+        self.clock = None if ref else FRI.PhaseClock("cpu")
+        self.proof = self.scheme.proof_eval(tr, *([] if ref else [self.clock]))
+        self.challenge = tr.challenge(fs)
+
+    def _points(self, scheme):
+        z1, z2 = self.points
+        scheme.append_eval_point(0, z1)
+        scheme.append_eval_point(0, z2)
+        scheme.append_eval_point(1, z1)
+
+    def verifier(self):
+        ver = self.scheme_cls(self.params)
+        ver.set_batch_size(0, 2)
+        ver.set_batch_size(1, 1)
+        self._points(ver)
+        tv = self.tr_cls("keccak_256", SEED)
+        if self.with_fixed:
+            ver.mark_batch_as_fixed(1)
+            ver.setup(tv, self.pre_data)
+        return ver, tv
+
+
+@functools.lru_cache(maxsize=None)
+def _lpc_pair(degree_log, with_fixed, seed=0xF121):
+    """The port's and the reference's `_LPCRun` on the same polynomials and
+    points, built once per module and shared by the tests that read them
+    (a test that tampers with a proof works on a deep copy)."""
     rfs = P.BLS12_381_FR
     rng = random.Random(seed)
     n = 1 << degree_log
     ref_polys = ([_ref_poly(rfs, n, rng) for _ in range(2)],
                  [_ref_poly(rfs, 3 * n // 4, rng)])
-    z1, z2 = rng.randrange(FS.p), rng.randrange(FS.p)
-    out = []
-    for ref in ((False, True) if with_reference else (False,)):
-        fri_mod, scheme_cls, tr_cls, fs = \
-            (RFRI, RLPC.LPCScheme, RT.Transcript, rfs) if ref \
-            else (FRI, LPC.LPCScheme, Transcript, FS)
-        params = fri_mod.FRIParams.build(
-            fs, degree_log=degree_log, expand_factor=2, lambda_=4,
-            merkle_hash="poseidon")
-        scheme = scheme_cls(params)
-        for k, polys in enumerate(ref_polys):
-            scheme.append_to_batch(
-                k, polys if ref else [_carry(FS, pl) for pl in polys])
-        roots = {0: scheme.commit(0), 1: scheme.commit(1)}
-        ver = scheme_cls(params)
-        ver.set_batch_size(0, 2)
-        ver.set_batch_size(1, 1)
-        for s in (scheme, ver):
-            s.append_eval_point(0, z1)
-            s.append_eval_point(0, z2)
-            s.append_eval_point(1, z1)
-        tr, tv = tr_cls("keccak_256", SEED), tr_cls("keccak_256", SEED)
-        if with_fixed:
-            scheme.mark_batch_as_fixed(1)
-            pre_data = scheme.preprocess(tr_cls("keccak_256", SEED))
-            scheme.setup(tr, pre_data)
-            ver.mark_batch_as_fixed(1)
-            ver.setup(tv, pre_data)
-        clock = None if ref else FRI.PhaseClock("cpu")
-        proof = scheme.proof_eval(tr, *([] if ref else [clock]))
-        out.append((scheme, ver, proof, roots, tr, tv, clock))
-    return out
+    points = (rng.randrange(FS.p), rng.randrange(FS.p))
+    return tuple(_LPCRun(ref, ref_polys, points, degree_log, with_fixed)
+                 for ref in (False, True))
 
 
 @pytest.mark.parametrize("degree_log,with_fixed", [(4, False), (4, True),
@@ -219,13 +245,15 @@ def test_lpc_roundtrip_and_parity(degree_log, with_fixed):
     package too hashes by its batched permutation; at 4 it hashes on the
     host. The port's Poseidon trees are batched down to the root at both."""
     ours, theirs = _lpc_pair(degree_log, with_fixed)
-    scheme, ver, proof, roots, tr, tv, clock = ours
-    rscheme, rver, rproof, rroots, rtr, rtv, _ = theirs
+    scheme, proof, roots = ours.scheme, ours.proof, ours.roots
+    ver, tv = ours.verifier()
+    rver, rtv = theirs.verifier()
+    rproof = theirs.proof
     assert scheme._trees[0].tree.levels_dev[-1].shape == (FS.nl, 1)
-    assert roots == rroots
+    assert roots == theirs.roots
     assert proof.z.z == rproof.z.z
     assert C.lpc_proof_as_plain(proof) == C.lpc_proof_as_plain(rproof)
-    assert scheme.get_params() == rscheme.get_params()
+    assert scheme.get_params() == theirs.scheme.get_params()
     # the evaluations are the polynomials' values at the points
     for k in (0, 1):
         for j, poly in enumerate(scheme._polys[k]):
@@ -236,35 +264,35 @@ def test_lpc_roundtrip_and_parity(degree_log, with_fixed):
     z.z = copy.deepcopy(proof.z.z)
     carried = RLPC.LPCProof(z=z, fri_proof=C.fri_proof_from_fields(
         C.fri_proof_fields(proof.fri_proof), RFRI))
-    assert rver.verify_eval(carried, rroots, rtv)
+    assert rver.verify_eval(carried, theirs.roots, rtv)
     z = TB.EvalStorage()
     z.z = copy.deepcopy(rproof.z.z)
     back = LPC.LPCProof(z=z, fri_proof=C.fri_proof_from_fields(
         C.fri_proof_fields(rproof.fri_proof)))
     assert ver.verify_eval(back, roots, tv)
-    challenge = tr.challenge(FS)
-    assert challenge == tv.challenge(FS) == rtr.challenge(P.BLS12_381_FR) \
+    assert ours.challenge == tv.challenge(FS) == theirs.challenge \
         == rtv.challenge(P.BLS12_381_FR)
     # the caller's clock took the phases
-    assert list(clock.seconds) == [
+    assert list(ours.clock.seconds) == [
         "eval_polys", "combined_q", "q_precommit", "fri_commit_phase",
         "fri_query_phase"]
 
 
 def test_lpc_rejects_tampered_eval():
-    (scheme, ver, proof, roots, tr, tv, _), = _lpc_pair(4, False, seed=5,
-                                                     with_reference=False)
+    ours = _lpc_pair(4, False)[0]
+    proof = copy.deepcopy(ours.proof)
     proof.z.z[0][0][0] = (proof.z.z[0][0][0] + 1) % FS.p
-    assert not ver.verify_eval(proof, roots, tv)
+    ver, tv = ours.verifier()
+    assert not ver.verify_eval(proof, ours.roots, tv)
 
 
 def test_lpc_verifies_its_own_proof_with_a_fixed_batch():
-    (scheme, ver, proof, roots, tr, tv, _), = _lpc_pair(4, True, seed=6,
-                                                     with_reference=False)
-    assert ver.verify_eval(proof, roots, tv)
-    assert tr.challenge(FS) == tv.challenge(FS)
-    assert scheme.get_commitment_params() is scheme.fri_params
-    assert scheme.batch_size(0) == 2
+    ours = _lpc_pair(4, True)[0]
+    ver, tv = ours.verifier()
+    assert ver.verify_eval(copy.deepcopy(ours.proof), ours.roots, tv)
+    assert ours.challenge == tv.challenge(FS)
+    assert ours.scheme.get_commitment_params() is ours.scheme.fri_params
+    assert ours.scheme.batch_size(0) == 2
 
 
 def test_proof_of_work_roundtrip():
@@ -310,3 +338,19 @@ def test_entry_points_default_to_the_card():
         PolyDFS.constant(FS, 1, 4)
     with pytest.raises(RuntimeError):
         PolyDFS.from_evals_ints(FS, [1, 2])
+    # the Placeholder prover: preprocessing makes its polynomials on the
+    # card unless told otherwise, and prove asks for the card
+    from crypto3_zk_tpu_torch.models.placeholder import preprocessor as PP
+    from crypto3_zk_tpu_torch.models.placeholder.prover import prove
+    from crypto3_zk_tpu_torch.tools.placeholder_fixture import PlaceholderRun
+    run = PlaceholderRun(4, None, lambda_=4, table_bits=2,
+                         merkle_hash="keccak_256")
+    with pytest.raises(RuntimeError):
+        run.preprocess()
+    with pytest.raises(RuntimeError):
+        PP.process_private(run.params, run.cs, run.assignment, run.desc)
+    run.device = "cpu"
+    run.preprocess()
+    with pytest.raises(RuntimeError):
+        prove(run.params, run.public, run.private, run.desc, run.cs,
+              run.scheme.fork())

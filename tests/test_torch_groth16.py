@@ -21,6 +21,8 @@ from crypto3_zk_tpu_torch.arithmetization import r1cs as TR
 from crypto3_zk_tpu_torch.fields import curves as TCV
 from crypto3_zk_tpu_torch.models import groth16 as TG16
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CURVE, TCURVE = CV.ALT_BN128, TCV.ALT_BN128
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,

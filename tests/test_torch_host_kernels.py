@@ -17,6 +17,8 @@ from crypto3_zk_tpu_torch.ops import hopper_msm as HM
 from crypto3_zk_tpu_torch.ops import limbs as TL
 from crypto3_zk_tpu_torch.tools import host_kernels
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 FQ, FR, BLS = TP.ALT_BN128_FQ, TP.ALT_BN128_FR, TP.BLS12_381_FQ
 
 

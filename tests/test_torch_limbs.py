@@ -13,6 +13,8 @@ from crypto3_zk_tpu_torch.fields import params as TP
 from crypto3_zk_tpu_torch.ops import hopper_field as HF
 from crypto3_zk_tpu_torch.ops import limbs as TL
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 FIELDS = ["ALT_BN128_FR", "ALT_BN128_FQ", "BLS12_381_FQ"]
 
 
@@ -98,6 +100,51 @@ def test_mont_mul_plain_matches_pallas_kernel(name):
     _same(ref, HF.mont_mul_plain(tfs, ta, tb))
     _same(ref, HF.mont_mul_hopper(tfs, ta, tb))
 
+
+@pytest.mark.parametrize("name", ["ALT_BN128_FR", "BLS12_381_FQ",
+                                  "PALLAS_FQ", "GOLDILOCKS"])
+def test_plain_forms_agree_with_each_other_and_python_ints(name,
+                                                           monkeypatch):
+    """The plain versions' two forms (whole-tensor for few lanes,
+    digit-serial for many) give the same digits, and the values Python ints
+    give; the MDS-style matrix product equals its products and adds."""
+    tfs = getattr(TP, name)
+    p = tfs.p
+    a, b = _values(p, 40, 9), _values(p, 40, 10)[::-1]
+    ta, tb = TL.encode(tfs, a, "cpu"), TL.encode(tfs, b, "cpu")
+    forms = []
+    for few_lanes in (HF._FEW_LANES, 0):
+        monkeypatch.setattr(HF, "_FEW_LANES", few_lanes)
+        forms.append([HF.mont_mul_plain(tfs, ta, tb),
+                      HF.add_plain(tfs, ta, tb), HF.sub_plain(tfs, ta, tb)])
+    for few, many in zip(*forms):
+        assert torch.equal(few, many)
+    assert [TL.decode(tfs, x) for x in forms[0]] == [
+        [x * y % p for x, y in zip(a, b)], [(x + y) % p for x, y in zip(a, b)],
+        [(x - y) % p for x, y in zip(a, b)]]
+    m = _values(p, 9, 11)
+    digits = TL.encode(tfs, m, "cpu").numpy().astype(np.int64)
+    table = torch.from_numpy(HF.matvec_table(digits.reshape(tfs.nl, 3, 3)))
+    x = ta[:, :39].reshape(tfs.nl, 3, 13)
+    got = HF.mont_matvec_plain(tfs, table, x)
+    xs = [a[j * 13:(j + 1) * 13] for j in range(3)]
+    assert [TL.decode(tfs, got[:, i]) for i in range(3)] == [
+        [sum(m[3 * i + j] * xs[j][k] for j in range(3)) % p
+         for k in range(13)] for i in range(3)]
+
+
+def test_time_plain_times_both_forms_on_the_same_digits():
+    """`tools/time_plain.py`, whose readings set `_FEW_LANES`, runs every
+    form on either side of the bound, finds their digits equal, and leaves
+    the bound as it was."""
+    from crypto3_zk_tpu_torch.tools import time_plain
+    bound = HF._FEW_LANES
+    rows = time_plain.time_forms(torch.device("cpu"), [2, 10], 1)
+    assert [(r["op"], r["log_lanes"]) for r in rows] == [
+        (op, log) for log in (2, 10)
+        for op in ("mont_mul", "add", "sub", "mds")]
+    assert all(v > 0 for r in rows for k, v in r.items() if k.endswith("ms"))
+    assert HF._FEW_LANES == bound
 
 def test_mont_mul_broadcasts_like_reference():
     fs, tfs, a, ta = _pair("ALT_BN128_FR", 12, 8)

@@ -4,6 +4,7 @@ package's: same leaves from a seed, the same root, `proof`, `proofs`, and
 batched permutation down to the root at 256 leaves and at 8 (the JAX package
 finishes under 128 digests on the host); a byte hasher's tree is host lists.
 Exact equality."""
+import functools
 import random
 
 import jax.numpy as jnp
@@ -19,11 +20,16 @@ from crypto3_zk_tpu_torch.commitments import merkle as TM
 from crypto3_zk_tpu_torch.fields import params as TP
 from crypto3_zk_tpu_torch.ops import limbs as TL
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 CASES = [("poseidon", "BLS12_381_FR"), ("poseidon_nil", "PALLAS_FQ"),
          ("keccak_256", "BLS12_381_FR"), ("sha2_256", "BLS12_381_FR")]
 
 
+@functools.lru_cache(maxsize=None)
 def _trees(name, field, n, k, seed=7):
+    """(leaf rows, the reference's tree, the port's tree, the port's
+    hasher), built once per module: the tests only read them."""
     rfs, fs = getattr(P, field), getattr(TP, field)
     rng = random.Random(seed)
     rows = [[rng.randrange(fs.p) for _ in range(k)] for _ in range(n)]

@@ -22,6 +22,8 @@ from crypto3_zk_tpu_torch.ops import limbs as TL
 from crypto3_zk_tpu_torch.ops import msm as TM
 from crypto3_zk_tpu_torch.ops import msm_affine as TMA
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 CURVE, TCURVE = CV.ALT_BN128, TCV.ALT_BN128
 
 

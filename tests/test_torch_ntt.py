@@ -16,6 +16,8 @@ from crypto3_zk_tpu_torch.ops import limbs as TL
 from crypto3_zk_tpu_torch.ops import ntt as TN
 from crypto3_zk_tpu_torch.poly.domain import get_domain
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 FS, TFS = P.ALT_BN128_FR, TP.ALT_BN128_FR
 
 

@@ -21,6 +21,8 @@ from crypto3_zk_tpu_torch.ops import ntt as TN
 from crypto3_zk_tpu_torch.poly import domain as TD
 from crypto3_zk_tpu_torch.poly import polynomial as TPoly
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 FS, TFS = P.BLS12_381_FR, TP.BLS12_381_FR
 p = FS.p
 

@@ -20,6 +20,8 @@ from crypto3_zk_tpu_torch.ops import limbs as TL
 from crypto3_zk_tpu_torch.ops import nil_poseidon as TNPO
 from crypto3_zk_tpu_torch.ops import poseidon as TPO
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 N = 4   # lanes; one shape per flavour keeps the JAX side to one compile
 
 

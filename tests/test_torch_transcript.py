@@ -14,6 +14,8 @@ from crypto3_zk_tpu_torch.transcript import fiat_shamir as TFS
 from crypto3_zk_tpu_torch.transcript import hashes as TH
 from crypto3_zk_tpu_torch.transcript import poseidon_transcript as TPT
 
+import torch_threads  # noqa: F401  one torch thread a worker
+
 
 def test_keccak_256_vectors():
     # original Keccak-256 (0x01 padding), not SHA3-256
