@@ -3,11 +3,19 @@
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from `crypto3_zk_tpu_torch/csrc/`, holds each of
-them against its plain PyTorch version on the card (exact equality: every
-value is an integer), then drives the port's two main paths through the entry
+It builds the CUDA kernels from `crypto3_zk_tpu_torch/csrc/`, measures the
+card's 32-bit multiply-add rate (`csrc/rate.cu`), holds each kernel, and
+each form of kernel 5, against its plain PyTorch version on the card (exact
+equality: every value is an integer) for the 8- and 12-word fields and for
+the Goldilocks (2 words, p fills its top word) and MNT4 Fr (19 digits,
+R = 2^304) instances, then drives the port's main paths through the entry
 points a user calls:
 
+- `ntt_hopper` past the single four-step's 2^20: against `ntt_plain` at
+  2^21 and 2^22, and inverse of forward at 2^24 and 2^26 (bls12-381 Fr);
+- `circuit_1` over Goldilocks with Poseidon trees proved on the card and on
+  the CPU (equal proofs and next challenges), and Groth16's witness map
+  over MNT4 Fr on both (equal);
 - Groth16 `generate`, `prove` (twice, the second is reported) and `verify`
   over alt_bn128 on a product-chain circuit of 2^16 constraints, whose A and
   B sides are both dense;
@@ -16,12 +24,13 @@ points a user calls:
   polynomials of degree < 2^16 and a fixed batch of 4 of degree < 3*2^14,
   `commit` of both, `proof_eval` (twice, the second is reported) and
   `verify_eval` by an independent verifier-side scheme. D0 has 2^18 points;
-- the Placeholder prover over bls12-381 Fr on a table of 2^16 rows
-  (`arithmetization.circuits.placeholder_chain`: an add/mul chain over 3
-  witness columns with copy constraints, and a range lookup into a table of
-  256; `tools/placeholder_fixture.py`), over LPC with the settings above:
+- the Placeholder prover over bls12-381 Fr on tables of 2^16 and of 2^18
+  rows (`arithmetization.circuits.placeholder_chain`: an add/mul chain over
+  3 witness columns with copy constraints, and a range lookup into a table
+  of 256; `tools/placeholder_fixture.py`), over LPC with the settings above:
   `process_public` / `process_private`, `prove` (twice, the second is
-  reported) and `verify` by an independent scheme; then `ntt_hopper`
+  reported), `verify` by an independent scheme, one more prove under
+  `torch.profiler` for kernel 5's device time by form; then `ntt_hopper`
   against its plain version at the longest transform the prove ran.
 
 It fails (non-zero exit, no result line) without a CUDA device, when a kernel
@@ -33,12 +42,14 @@ transcripts that disagree), or when a small proof made on the card differs
 from the CPU plain path's.
 
 Output: one line per phase with its seconds; then the times of one whole 2^17
-transform as a JSON object; then, on a line of its own, a JSON object
-{"kernels": [...]} with every kernel's numbers (`launches` is the sum over
-the three paths, `launches_groth16_prove`, `launches_lpc_path`,
-`launches_lpc_proof_eval`, `launches_placeholder_path` and
-`launches_placeholder_prove` its parts); then the card's name and power
-limit; then the result line.
+transform, the transforms past 2^20, the multiply-add rate and kernel 5's
+device ms in each Placeholder prove as a JSON object; then, on a line of its
+own, a JSON object {"kernels": [...]} with every kernel's numbers
+(`launches` is the sum over the whole paths: Groth16 prove, LPC path and
+both Placeholder paths; `launches_<path>` its parts; a row named
+`kernel[field]` is another field's instance, its launches those of that
+field's run; `int_bound_ms` is the bound with the measured integer rate);
+then the card's name and power limit; then the result line.
 
 `--kernels-only` stops after the kernel checks, for a quick look at a kernel
 edit: it drives no main path, so its `kernels` line carries no `launches`
@@ -149,9 +160,39 @@ def bound(bytes_moved: int, ops: int):
 
 def mont_ops(nl: int) -> int:
     """32-bit operations of one word-level CIOS product: NW*(2NW+1)
-    multiply-adds, two operations each."""
-    nw = nl // 2
+    multiply-adds, two operations each (the lo and the hi instruction)."""
+    nw = (nl + 1) // 2
     return 2 * nw * (2 * nw + 1)
+
+
+IMAD = {"per_s": None}       # the card's measured multiply-add issue rate
+
+
+def imad_rate(torch) -> float:
+    """32-bit multiply-add instructions (with carry, as the products issue
+    them) the card retires a second, by the loop of `csrc/rate.cu` on 8
+    blocks of 256 threads an SM; the median of 5 timed launches."""
+    from crypto3_zk_tpu_torch import kernels as K
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, threads, iters = 8 * sms, 256, 4096
+    out = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    fn = K.entry("zk_imad_rate")
+
+    def launch(_):
+        K.check(fn(out.data_ptr(), blocks, threads, iters, K.stream_ptr()),
+                "zk_imad_rate")
+
+    times = sorted(time_ms(torch, launch, 1, 1) for _ in range(5))
+    per_s = blocks * threads * iters * 2 * 16 / (times[2] * 1e-3)
+    IMAD["per_s"] = per_s
+    return per_s
+
+
+def int_bound_ms(bytes_moved: int, ops: int) -> float:
+    """The bound with the measured integer rate in place of the float32
+    one: the larger of the bytes' time and the multiply-add instructions'
+    (`ops` counts two a word product, the instructions it issues)."""
+    return max(bytes_moved / HBM_BYTES_PER_S, ops / IMAD["per_s"]) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +223,8 @@ def check_kernels(torch):
         return err
 
     def measure(name, source, replaces, fs, kernel, plain, make, bytes_moved,
-                ops, per_set_bytes, extra_err=0, latency_bound_ms=None):
+                ops, per_set_bytes, extra_err=0, latency_bound_ms=None,
+                plain_reps=2):
         n_sets = max(1, -(-FLUSH_BYTES // per_set_bytes))
         sets = [make() for _ in range(n_sets)]
         err = max(extra_err, compare(name, fs, kernel, plain, sets[0]))
@@ -190,7 +232,8 @@ def check_kernels(torch):
                      queued=True)
         # the plain version is many library launches; its time is what a
         # caller waits for, the host's share included
-        plain_ms = time_ms(torch, lambda i: plain(fs, *sets[i]), n_sets, 2)
+        plain_ms = time_ms(torch, lambda i: plain(fs, *sets[i]), n_sets,
+                           plain_reps)
         bound_ms, bound_by = bound(bytes_moved, ops)
         if latency_bound_ms is not None:
             # a chain of dependent operations: no rate bounds it
@@ -199,14 +242,18 @@ def check_kernels(torch):
                      "replaces": replaces,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None,
+                     "int_bound_ms": int_bound_ms(bytes_moved, ops),
+                     "library_ms": None, "field": fs.name,
                      "shape": [list(t.shape) for t in sets[0]
                                if hasattr(t, "shape")]})
         if latency_bound_ms is not None:
             rows[-1]["bound_note"] = ("latency: dependent products in "
                                       "sequence x the time of one")
+            rows[-1]["int_bound_ms"] = latency_bound_ms
         log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by}")
+            f"{bound_ms:.4f} ms by {bound_by}, integer-rate bound "
+            f"{rows[-1]['int_bound_ms']:.4f} ms")
+        return rows[-1]
 
     # kernel 1: Montgomery multiply (and the add / subtract entries)
     n = 1 << 20
@@ -367,7 +414,9 @@ def check_kernels(torch):
             latency_bound_ms=product_ms
             * HM.tail_products_in_sequence(fq, size))
 
-    check_poseidon(torch, gen, compare, measure, rows)
+    check_poseidon(torch, gen, compare, measure, rows, product_ms)
+    for fs in (P.GOLDILOCKS, P.MNT4_FR):
+        check_field(torch, fs, gen, compare, measure)
     return rows, transforms
 
 
@@ -375,13 +424,19 @@ LPC_LOG2_DEGREE = 16         # the LPC path's polynomials: degree < 2^16
 LPC_EXPAND = 2               # its first domain D0 has 2^18 points, and its
                              # first Merkle trees 2^17 leaves (the fixture's
                              # expand factor, `tools/lpc_fixture.py`)
+# states each form is timed at: both sides of `hopper_hash.SHARED_MAX`
+POSEIDON_SIZES = (64, 1 << 12, 1 << 13, 1 << 14, 1 << 17)
 
 
-def check_poseidon(torch, gen, compare, measure, rows):
-    """Kernel 5 against its plain version: both round orders, both word
-    counts, every input form the Merkle layer uses, and its time at the
-    LPC path's top shapes (the leaf sponge on 2^17 states, the largest
-    node level on 2^16)."""
+def check_poseidon(torch, gen, compare, measure, rows, product_ms):
+    """Kernel 5 against its plain version in each form (one thread a state,
+    three threads a state, the tree's tail in one launch): both round
+    orders, both word counts, every input form the Merkle layer uses; each
+    form's time at `POSEIDON_SIZES` states; the tree form on 2 * TREE_MAX
+    digests;
+    and one whole tree of 2^17 leaves down to the root, the new way and the
+    old (a launch of the one-thread form a level)."""
+    from crypto3_zk_tpu_torch.commitments import merkle as MK
     from crypto3_zk_tpu_torch.fields import params as P
     from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     from crypto3_zk_tpu_torch.ops import nil_poseidon as NPO
@@ -390,38 +445,48 @@ def check_poseidon(torch, gen, compare, measure, rows):
     def planes(state):
         return (state[:, 0], state[:, 1], state[:, 2])
 
-    def permute(fs, state):
-        return HH.poseidon_permute_hopper(pp, planes(state))
+    def forms(form):
+        def permute(fs, state):
+            return HH.poseidon_permute_hopper(pp, planes(state), form=form)
+
+        def level(fs, digests):
+            return HH.poseidon_permute_hopper(
+                pp, (digests[:, 0::2], digests[:, 1::2], None),
+                lane0_only=True, form=form)
+
+        def absorb(fs, state, r0, r1, lane0_only):
+            return HH.poseidon_permute_hopper(pp, planes(state), (r0, r1),
+                                              lane0_only, form=form)
+
+        def sponge(fs, r0, r1):
+            return HH.poseidon_permute_hopper(pp, (None, None, None),
+                                              (r0, r1), lane0_only=True,
+                                              form=form)
+        return permute, level, absorb, sponge
 
     def permute_plain(fs, state):
         return HH.poseidon_permute_plain(pp, planes(state))
-
-    def level(fs, digests):
-        return HH.poseidon_permute_hopper(
-            pp, (digests[:, 0::2], digests[:, 1::2], None), lane0_only=True)
 
     def level_plain(fs, digests):
         return HH.poseidon_permute_plain(
             pp, (digests[:, 0::2], digests[:, 1::2], None), lane0_only=True)
 
-    def absorb(fs, state, r0, r1, lane0_only):
-        return HH.poseidon_permute_hopper(pp, planes(state), (r0, r1),
-                                          lane0_only)
-
     def absorb_plain(fs, state, r0, r1, lane0_only):
         return HH.poseidon_permute_plain(pp, planes(state), (r0, r1),
                                          lane0_only)
-
-    def sponge(fs, r0, r1):
-        return HH.poseidon_permute_hopper(pp, (None, None, None), (r0, r1),
-                                          lane0_only=True)
 
     def sponge_plain(fs, r0, r1):
         return HH.poseidon_permute_plain(pp, (None, None, None), (r0, r1),
                                          lane0_only=True)
 
+    def tree(fs, digests):
+        return tuple(HH.poseidon_tree_hopper(pp, digests))
+
+    def tree_plain(fs, digests):
+        return tuple(HH.poseidon_tree_plain(pp, digests))
+
     top = 1 << (LPC_LOG2_DEGREE + LPC_EXPAND - 1)
-    err = 0
+    err = {"lanes": 0, "shared": 0, "tree": 0}
     for pp in (PO.get_params(P.BLS12_381_FR), NPO.get_params(P.PALLAS_FQ),
                PO.get_params(P.BLS12_381_FQ)):
         fs = pp.fs
@@ -429,43 +494,283 @@ def check_poseidon(torch, gen, compare, measure, rows):
             f"{len(pp.round_constants)} rounds, partial "
             f"{pp.partial_rounds}, rc first {pp.rc_first}, "
             f"{HH.products_per_state(pp)} products a state")
-        for n in (1, 33, 4096, top):
-            err = max(err, compare("poseidon", fs, permute, permute_plain,
-                                   (rand_field(torch, fs, (3, n), gen),)))
-        for n in (33, 4096) if fs is P.BLS12_381_FR else (33,):
-            err = max(err, compare(
-                "poseidon(level)", fs, level, level_plain,
-                (rand_field(torch, fs, (2 * n,), gen),)))
-            for r1 in (rand_field(torch, fs, (n,), gen), None):
-                for lane0_only in (False, True):
-                    err = max(err, compare(
-                        "poseidon(absorb)", fs, absorb, absorb_plain,
-                        (rand_field(torch, fs, (3, n), gen),
-                         rand_field(torch, fs, (n,), gen), r1, lane0_only)))
+        for form in ("lanes", "shared"):
+            permute, level, absorb, _ = forms(form)
+            for n in (1, 33, 4096, top):
+                err[form] = max(err[form], compare(
+                    f"poseidon({form})", fs, permute, permute_plain,
+                    (rand_field(torch, fs, (3, n), gen),)))
+            for n in (33, 4096) if fs is P.BLS12_381_FR else (33,):
+                err[form] = max(err[form], compare(
+                    f"poseidon({form}, level)", fs, level, level_plain,
+                    (rand_field(torch, fs, (2 * n,), gen),)))
+                for r1 in (rand_field(torch, fs, (n,), gen), None):
+                    for lane0_only in (False, True):
+                        err[form] = max(err[form], compare(
+                            f"poseidon({form}, absorb)", fs, absorb,
+                            absorb_plain,
+                            (rand_field(torch, fs, (3, n), gen),
+                             rand_field(torch, fs, (n,), gen), r1,
+                             lane0_only)))
+        for n2 in (2, 64, 2 * HH.TREE_MAX):
+            err["tree"] = max(err["tree"], compare(
+                "poseidon(tree)", fs, tree, tree_plain,
+                (rand_field(torch, fs, (n2,), gen),)))
     # the Merkle forms at the LPC path's own top shapes: the largest node
     # level (strided even and odd digests, no third element, element 0 out)
     # and a two-row leaf sponge (no state, two absorb planes, element 0 out)
     pp = PO.get_params(P.BLS12_381_FR)
     fs = pp.fs
-    err = max(err, compare("poseidon(level)", fs, level, level_plain,
-                           (rand_field(torch, fs, (top,), gen),)))
-    err = max(err, compare("poseidon(absorb)", fs, sponge, sponge_plain,
-                           (rand_field(torch, fs, (top,), gen),
-                            rand_field(torch, fs, (top,), gen))))
     products = HH.products_per_state(pp)
-    measure("poseidon", "crypto3_zk_tpu_torch/csrc/poseidon.cu",
-            "crypto3_zk_tpu/ops/poseidon.py:185", fs, permute, permute_plain,
-            lambda: (rand_field(torch, fs, (3, top), gen),),
-            bytes_moved=6 * fs.nl * 4 * top,
-            ops=products * mont_ops(fs.nl) * top,
-            per_set_bytes=3 * fs.nl * 4 * top, extra_err=err)
+    for form in ("lanes", "shared"):
+        _, level, _, sponge = forms(form)
+        err[form] = max(err[form], compare(
+            f"poseidon({form}, level)", fs, level, level_plain,
+            (rand_field(torch, fs, (top,), gen),)))
+        err[form] = max(err[form], compare(
+            f"poseidon({form}, absorb)", fs, sponge, sponge_plain,
+            (rand_field(torch, fs, (top,), gen),
+             rand_field(torch, fs, (top,), gen))))
+    # each form timed at each size; the row's own numbers at the size where
+    # the wrapper picks it (2^17 for one thread a state, as in earlier runs;
+    # 2^12 for three threads a state)
+    chain = {"lanes": products, "shared": len(pp.round_constants) * 6}
+    form_rows = {}
+    for form, name, n_row in (("lanes", "poseidon", top),
+                              ("shared", "poseidon_shared", 1 << 12)):
+        permute = forms(form)[0]
+        row = measure(name, "crypto3_zk_tpu_torch/csrc/poseidon.cu",
+                      "crypto3_zk_tpu/ops/poseidon.py:185", fs, permute,
+                      permute_plain,
+                      lambda: (rand_field(torch, fs, (3, n_row), gen),),
+                      bytes_moved=6 * fs.nl * 4 * n_row,
+                      ops=products * mont_ops(fs.nl) * n_row,
+                      per_set_bytes=3 * fs.nl * 4 * n_row,
+                      extra_err=err[form])
+        form_rows[form] = row
+        row["form"] = form
+        row["products_in_sequence"] = chain[form]
+        row["latency_bound_ms"] = chain[form] * product_ms
+        for n in POSEIDON_SIZES:
+            states = [rand_field(torch, fs, (3, n), gen)
+                      for _ in range(max(1, -(-FLUSH_BYTES
+                                              // (3 * fs.nl * 4 * n))))]
+            row[f"ms_{n}_states"] = time_ms(
+                torch, lambda i: permute(fs, states[i]), len(states), 20,
+                queued=True)
+        log(f"  {name} ({form}) at " + ", ".join(
+            f"{n} states {row[f'ms_{n}_states']:.4f} ms"
+            for n in POSEIDON_SIZES)
+            + f"; latency bound {row['latency_bound_ms']:.4f} ms")
+    lanes_row = form_rows["lanes"]
     digests = [rand_field(torch, fs, (top,), gen) for _ in range(8)]
-    rows[-1]["level_ms"] = time_ms(
-        torch, lambda i: level(fs, digests[i]), len(digests), 20, queued=True)
-    rows[-1]["level_shape"] = [fs.nl, top // 2]
-    rows[-1]["products_per_state"] = products
+    lanes_row["level_ms"] = time_ms(
+        torch, lambda i: forms("lanes")[1](fs, digests[i]), len(digests), 20,
+        queued=True)
+    lanes_row["level_shape"] = [fs.nl, top // 2]
+    lanes_row["products_per_state"] = products
     log(f"  poseidon, node level of {top // 2} states: "
-        f"{rows[-1]['level_ms']:.4f} ms")
+        f"{lanes_row['level_ms']:.4f} ms")
+    del digests
+    # the tree form: 2 * TREE_MAX digests, every level in one launch
+    n2 = 2 * HH.TREE_MAX
+    levels = HH.TREE_MAX.bit_length()
+    row = measure("poseidon_tree", "crypto3_zk_tpu_torch/csrc/poseidon.cu",
+                  "crypto3_zk_tpu/ops/poseidon.py:185", fs, tree, tree_plain,
+                  lambda: (rand_field(torch, fs, (n2,), gen),),
+                  bytes_moved=fs.nl * 4 * (n2 + 2 * HH.TREE_MAX - 1),
+                  ops=products * mont_ops(fs.nl) * (2 * HH.TREE_MAX - 1),
+                  per_set_bytes=FLUSH_BYTES, extra_err=err["tree"],
+                  plain_reps=1)
+    row["form"] = "tree"
+    row["products_in_sequence"] = levels * chain["shared"]
+    row["latency_bound_ms"] = levels * chain["shared"] * product_ms
+    log(f"  poseidon_tree: {levels} levels, latency bound "
+        f"{row['latency_bound_ms']:.4f} ms")
+
+    # one whole tree of 2^17 leaf digests down to the root: what
+    # `merkle._device_levels` launches, against one launch of the one-thread
+    # form a level (the design before the shared and tree forms)
+    hasher = MK.FieldHasher(fs)
+
+    def old_levels(digests):
+        out = [digests]
+        while out[-1].shape[-1] > 1:
+            cur = out[-1]
+            out.append(HH.poseidon_permute_hopper(
+                pp, (cur[:, 0::2], cur[:, 1::2], None), lane0_only=True,
+                form="lanes"))
+        return out
+
+    leaves = [rand_field(torch, fs, (top,), gen) for _ in range(4)]
+    new, old = MK._device_levels(hasher, leaves[0]), old_levels(leaves[0])
+    torch.cuda.synchronize()
+    if len(new) != len(old) or any(max_abs_err(torch, a, b) != 0
+                                   for a, b in zip(new, old)):
+        raise AssertionError("the Merkle levels of the new forms differ "
+                             "from one-thread levels")
+    before = launch_counts()
+    MK._device_levels(hasher, leaves[0])
+    launches = {k: v - before[k] for k, v in launch_counts().items()
+                if k.startswith("poseidon") and v != before[k]}
+    tree_ms = {
+        "leaves": top, "levels": len(new) - 1, "launches": launches,
+        "ms": time_ms(torch, lambda i: MK._device_levels(hasher, leaves[i]),
+                      len(leaves), 10, queued=True),
+        "old_form_launches": len(old) - 1,
+        "old_form_ms": time_ms(torch, lambda i: old_levels(leaves[i]),
+                               len(leaves), 10, queued=True)}
+    log(f"  merkle tree of {top} leaves: {tree_ms['ms']:.4f} ms in "
+        f"{launches}; one-thread form a level {tree_ms['old_form_ms']:.4f} "
+        f"ms in {tree_ms['old_form_launches']} launches")
+    rows[-1]["merkle_tree_2p17"] = tree_ms
+
+
+def check_field(torch, fs, gen, compare, measure):
+    """The kernel instances of another field (Goldilocks: two words, p
+    fills its top word; MNT4 Fr: 19 digits, R = 2^304): every kernel and
+    form against its plain version at small shapes, and a time row for
+    each (`field` names the field)."""
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    from crypto3_zk_tpu_torch.ops import poseidon as PO
+
+    tag = f"[{fs.name}]"
+    log(f"  {fs.name}: {fs.nl} digits, {(fs.nl + 1) // 2} words")
+    base_measure = measure
+
+    def measure(*args, **kwargs):      # one timed plain call a row
+        return base_measure(*args, plain_reps=1, **kwargs)
+
+    a, b = rand_field(torch, fs, (4096,), gen), rand_field(torch, fs,
+                                                          (4096,), gen)
+    err1 = 0
+    for name, kernel, plain in (("mont_mul", HF.mont_mul_hopper,
+                                 HF.mont_mul_plain),
+                                ("add", HF.add_hopper, HF.add_plain),
+                                ("sub", HF.sub_hopper, HF.sub_plain)):
+        err1 = max(err1, compare(name, fs, kernel, plain, (a, b)))
+    n = 1 << 20
+    measure("mont_mul" + tag, "crypto3_zk_tpu_torch/csrc/mont_mul.cu",
+            "crypto3_zk_tpu/ops/pallas_field.py:126", fs,
+            HF.mont_mul_hopper, HF.mont_mul_plain,
+            lambda: (rand_field(torch, fs, (n,), gen),
+                     rand_field(torch, fs, (n,), gen)),
+            bytes_moved=3 * fs.nl * 4 * n, ops=mont_ops(fs.nl) * n,
+            per_set_bytes=2 * fs.nl * 4 * n, extra_err=err1)
+    err2 = 0
+    for log_b in (1, 2, 5, 10):
+        for m_rows in (3, 256):
+            for inverse in (False, True):
+                err2 = max(err2, compare(
+                    "ntt_rows", fs, HF.ntt_rows_hopper, HF.ntt_rows_plain,
+                    (rand_field(torch, fs, (m_rows, 1 << log_b), gen),
+                     inverse)))
+    for log_n in (11, 17):
+        for inverse in (False, True):
+            err2 = max(err2, compare(
+                "ntt_hopper", fs, HF.ntt_hopper, HF.ntt_plain,
+                (rand_field(torch, fs, (1 << log_n,), gen), inverse)))
+    m_rows, blen = 256, 512
+    measure("ntt_rows" + tag, "crypto3_zk_tpu_torch/csrc/ntt_rows.cu",
+            "crypto3_zk_tpu/ops/pallas_field.py:184", fs,
+            HF.ntt_rows_hopper, HF.ntt_rows_plain,
+            lambda: (rand_field(torch, fs, (m_rows, blen), gen), False),
+            bytes_moved=fs.nl * 4 * (2 * m_rows * blen + blen // 2),
+            ops=m_rows * (blen // 2) * 9 * (mont_ops(fs.nl) + 2 * fs.nl),
+            per_set_bytes=fs.nl * 4 * m_rows * blen, extra_err=err2)
+    err3 = err4 = err5 = 0
+    for k in (1, 17, 64):
+        for c in (7, 512):
+            err3 = max(err3, compare(
+                "inv_scans", fs, HM.inv_scans_hopper, HM.inv_scans_plain,
+                (nonzero(torch, rand_field(torch, fs, (k, c), gen)),)))
+    err4 = compare("mul3", fs, HM.mul3_bcast_hopper, HM.mul3_bcast_plain,
+                   (rand_field(torch, fs, (64, 256), gen),
+                    rand_field(torch, fs, (64, 256), gen),
+                    rand_field(torch, fs, (256,), gen)))
+    for size in (1, 63, HM.INV_TAIL_MAX):
+        err5 = max(err5, compare(
+            "inv_tail", fs, HM.batch_inverse_small_hopper,
+            HM.batch_inverse_small_plain,
+            (nonzero(torch, rand_field(torch, fs, (size,), gen)),)))
+    k, c = 64, 1 << 15
+    scan_bytes = fs.nl * 4 * (3 * k * c + c)
+    measure("inv_scans" + tag, "crypto3_zk_tpu_torch/csrc/inv_scans.cu",
+            "crypto3_zk_tpu/ops/pallas_msm.py:80", fs,
+            HM.inv_scans_hopper, HM.inv_scans_plain,
+            lambda: (nonzero(torch, rand_field(torch, fs, (k, c), gen)),),
+            bytes_moved=scan_bytes, ops=2 * k * c * mont_ops(fs.nl),
+            per_set_bytes=fs.nl * 4 * k * c, extra_err=err3)
+    measure("mul3" + tag, "crypto3_zk_tpu_torch/csrc/mul3.cu",
+            "crypto3_zk_tpu/ops/pallas_msm.py:124", fs,
+            HM.mul3_bcast_hopper, HM.mul3_bcast_plain,
+            lambda: (rand_field(torch, fs, (k, c), gen),
+                     rand_field(torch, fs, (k, c), gen),
+                     rand_field(torch, fs, (c,), gen)),
+            bytes_moved=scan_bytes, ops=2 * k * c * mont_ops(fs.nl),
+            per_set_bytes=2 * fs.nl * 4 * k * c, extra_err=err4)
+    single = nonzero(torch, rand_field(torch, fs, (1,), gen))
+    chain_ms = time_ms(torch,
+                       lambda i: HM.batch_inverse_small_hopper(fs, single),
+                       1, 20, queued=True)
+    product_ms = chain_ms / HM.tail_products_in_sequence(fs, 1)
+    log(f"  inv_tail{tag} on one element: {chain_ms:.4f} ms, "
+        f"{product_ms * 1e3:.3f} us a dependent product")
+    measure("inv_tail" + tag, "crypto3_zk_tpu_torch/csrc/inv_scans.cu",
+            "crypto3_zk_tpu/ops/pallas_msm.py:80", fs,
+            HM.batch_inverse_small_hopper, HM.batch_inverse_small_plain,
+            lambda: (nonzero(torch, rand_field(torch, fs, (512,), gen)),),
+            bytes_moved=2 * fs.nl * 4 * 512, ops=0,
+            per_set_bytes=FLUSH_BYTES, extra_err=err5,
+            latency_bound_ms=product_ms
+            * HM.tail_products_in_sequence(fs, 512))
+    pp = PO.get_params(fs)
+    products = HH.products_per_state(pp)
+
+    def planes(state):
+        return (state[:, 0], state[:, 1], state[:, 2])
+
+    def permute_plain(fs_, state):
+        return HH.poseidon_permute_plain(pp, planes(state))
+
+    errs = {}
+    for form in ("lanes", "shared"):
+        def permute(fs_, state, form=form):
+            return HH.poseidon_permute_hopper(pp, planes(state), form=form)
+        errs[form] = 0
+        for n in (1, 33, 4096):
+            errs[form] = max(errs[form], compare(
+                f"poseidon({form})", fs, permute, permute_plain,
+                (rand_field(torch, fs, (3, n), gen),)))
+    errs["tree"] = compare(
+        "poseidon(tree)", fs,
+        lambda fs_, d: tuple(HH.poseidon_tree_hopper(pp, d)),
+        lambda fs_, d: tuple(HH.poseidon_tree_plain(pp, d)),
+        (rand_field(torch, fs, (2 * HH.TREE_MAX,), gen),))
+    for form, name, n_row in (("lanes", "poseidon", 1 << 14),
+                              ("shared", "poseidon_shared", 1 << 12)):
+        row = measure(
+            name + tag, "crypto3_zk_tpu_torch/csrc/poseidon.cu",
+            "crypto3_zk_tpu/ops/poseidon.py:185", fs,
+            lambda fs_, state, form=form: HH.poseidon_permute_hopper(
+                pp, planes(state), form=form),
+            permute_plain,
+            lambda: (rand_field(torch, fs, (3, n_row), gen),),
+            bytes_moved=6 * fs.nl * 4 * n_row,
+            ops=products * mont_ops(fs.nl) * n_row,
+            per_set_bytes=3 * fs.nl * 4 * n_row, extra_err=errs[form])
+        row["form"] = form
+    n2 = 2 * HH.TREE_MAX
+    measure("poseidon_tree" + tag, "crypto3_zk_tpu_torch/csrc/poseidon.cu",
+            "crypto3_zk_tpu/ops/poseidon.py:185", fs,
+            lambda fs_, d: tuple(HH.poseidon_tree_hopper(pp, d)),
+            lambda fs_, d: tuple(HH.poseidon_tree_plain(pp, d)),
+            lambda: (rand_field(torch, fs, (n2,), gen),),
+            bytes_moved=fs.nl * 4 * (n2 + 2 * HH.TREE_MAX - 1),
+            ops=products * mont_ops(fs.nl) * (2 * HH.TREE_MAX - 1),
+            per_set_bytes=FLUSH_BYTES, extra_err=errs["tree"])
 
 
 def launch_counts() -> dict:
@@ -490,7 +795,8 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 GROTH16_KERNELS = ("mont_mul", "ntt_rows", "inv_scans", "mul3", "inv_tail")
-LPC_KERNELS = GROTH16_KERNELS + ("poseidon",)
+LPC_KERNELS = GROTH16_KERNELS + ("poseidon", "poseidon_shared",
+                                  "poseidon_tree")
 PLACEHOLDER_KERNELS = LPC_KERNELS
 
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
@@ -692,7 +998,7 @@ def lpc_path(torch) -> tuple[dict, dict]:
 # phase 6: the Placeholder path (process -> prove -> verify)
 # ---------------------------------------------------------------------------
 
-PLACEHOLDER_LOG2_ROWS = 16   # the table: 2^16 rows, 2^16 - 6 usable
+PLACEHOLDER_LOG2_ROWS = (16, 18)   # the tables: 2^k rows, 2^k - 6 usable
 
 
 def small_agreement_placeholder(torch):
@@ -715,21 +1021,23 @@ def small_agreement_placeholder(torch):
         raise AssertionError("small Placeholder proof rejected")
 
 
-def placeholder_path(torch) -> tuple[dict, dict, int]:
-    """The Placeholder path at 2^16 rows. Returns (launch counts of the
-    whole path, launch counts of the second prove alone, the longest
-    transform the prove ran)."""
+def placeholder_path(torch, rows_log: int) -> tuple[dict, dict, int, dict]:
+    """The Placeholder path at 2^rows_log rows. Returns (launch counts of
+    the whole path, launch counts of the second prove alone, the longest
+    transform the prove ran, device ms and calls of each form of kernel 5
+    in one more prove under `torch.profiler`)."""
     import copy
     from crypto3_zk_tpu_torch.commitments.fri import PhaseClock
     from crypto3_zk_tpu_torch.models.placeholder import common as PC
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
     from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    from crypto3_zk_tpu_torch.tools import profile_prove as PRF
     from crypto3_zk_tpu_torch.tools.placeholder_fixture import PlaceholderRun
 
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    run = PlaceholderRun(PLACEHOLDER_LOG2_ROWS, "cuda")
+    run = PlaceholderRun(rows_log, "cuda")
     desc = run.desc
     log(f"placeholder: placeholder_chain, {desc.rows_amount} rows "
         f"({desc.usable_rows_amount} usable), {desc.witness_columns} "
@@ -795,7 +1103,130 @@ def placeholder_path(torch) -> tuple[dict, dict, int]:
         raise AssertionError("the verifier accepted a changed opened value")
     log(f"placeholder verify with one opened value changed: rejected "
         f"({time.perf_counter() - t0:.2f} s)")
-    return counts, per_prove, longest
+    device = PRF._device_profile(lambda: run.prove()[0])
+    poseidon = PRF.poseidon_device_ms(device)
+    log(f"placeholder prove at 2^{rows_log} rows under torch.profiler: "
+        f"device busy {device['device_busy_s']:.4f} s of "
+        f"{device['wall_s_profiled']:.3f} s; kernel 5 by form: {poseidon}")
+    return counts, per_prove, longest, poseidon
+
+
+def goldilocks_agreement(torch) -> dict:
+    """`circuit_1` over Goldilocks with Poseidon trees (the reference's
+    Goldilocks case): the card's proof equals the CPU plain path's, every
+    challenge included (the whole proof and the next one), and verifies.
+    Returns the launch counts of the card's preprocess and prove."""
+    from crypto3_zk_tpu_torch.arithmetization.circuits import circuit_1
+    from crypto3_zk_tpu_torch.commitments import fri as FRI
+    from crypto3_zk_tpu_torch.commitments.lpc import LPCScheme
+    from crypto3_zk_tpu_torch.convert import placeholder_proof_as_plain
+    from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.models.placeholder import common as PCM
+    from crypto3_zk_tpu_torch.models.placeholder import preprocessor as PP
+    from crypto3_zk_tpu_torch.models.placeholder.prover import prove
+    from crypto3_zk_tpu_torch.models.placeholder.verifier import verify
+    from crypto3_zk_tpu_torch.transcript.poseidon_transcript import \
+        make_transcript
+
+    fs = P.GOLDILOCKS
+    got, counts = [], None
+    for device in ("cuda", "cpu"):
+        cs, asg, desc, pub_in = circuit_1(fs.p, random.Random(0xAB))
+        params = PCM.PlaceholderParams(fs)
+        fri = FRI.FRIParams.build(fs, degree_log=4, lambda_=4,
+                                  merkle_hash="poseidon")
+        reset_launch_counts()
+        scheme = LPCScheme(fri)
+        pub = PP.process_public(params, cs, asg, desc, scheme, device=device)
+        priv = PP.process_private(params, cs, asg, desc, device=device)
+        tr = make_transcript(params.transcript_hash, fs, b"")
+        proof = prove(params, pub, priv, desc, cs, scheme.fork(), None, tr,
+                      device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        got.append((placeholder_proof_as_plain(proof), tr.challenge(fs)))
+        tr = make_transcript(params.transcript_hash, fs, b"")
+        if not verify(params, pub.common_data, proof, desc, cs,
+                      LPCScheme(fri), public_input=pub_in, transcript=tr):
+            raise AssertionError(f"the Goldilocks proof made on {device} "
+                                 f"was rejected")
+    if got[0] != got[1]:
+        raise AssertionError("card and CPU Goldilocks proofs differ")
+    return counts
+
+
+def mnt4_witness_map(torch, log_n: int = 12) -> dict:
+    """Groth16's witness map (3 iNTTs, 3 coset NTTs, a coset iNTT) over
+    MNT4 Fr, 19 digits, on the card equals the CPU's, on a product chain of
+    2^log_n - 2 constraints. Returns the card run's launch counts."""
+    from crypto3_zk_tpu_torch.arithmetization import qap as Q
+    from crypto3_zk_tpu_torch.arithmetization.circuits import product_chain
+    from crypto3_zk_tpu_torch.fields import params as P
+
+    fs = P.MNT4_FR
+    cs, primary, aux = product_chain(fs.p, (1 << log_n) - 2)
+    got, counts = [], None
+    for device in ("cuda", "cpu"):
+        reset_launch_counts()
+        w = Q.witness_map(fs, cs, primary, aux, 11, 13, 17, device=device)
+        if device == "cuda":
+            counts = launch_counts()
+        got.append((w.degree, w.coefficients_for_H))
+    if got[0] != got[1]:
+        raise AssertionError("card and CPU witness maps differ over MNT4 Fr")
+    return counts
+
+
+def check_big_transforms(torch) -> dict:
+    """`ntt_hopper` past the single four-step's 2^20: against `ntt_plain`
+    at 2^21 and 2^22, forward and inverse; inverse of forward equals the
+    input at 2^24 and 2^26, each direction timed (bls12-381 Fr)."""
+    from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+
+    fs = P.BLS12_381_FR
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2026)
+    out = {}
+    for log_n in (21, 22):
+        x = rand_field(torch, fs, (1 << log_n,), gen)
+        for inverse in (False, True):
+            before = launch_counts()
+            got = HF.ntt_hopper(fs, x, inverse)
+            torch.cuda.synchronize()
+            launches = {k: v - before[k] for k, v in launch_counts().items()
+                        if v != before[k]}
+            err = max_abs_err(torch, got, HF.ntt_plain(fs, x, inverse))
+            log(f"  ntt_hopper {fs.name} 2^{log_n} "
+                f"{'inverse' if inverse else 'forward'}: max_abs_err {err}, "
+                f"launches {launches}")
+            if err != 0:
+                raise AssertionError(f"ntt_hopper disagrees with its plain "
+                                     f"version at 2^{log_n}")
+            out[f"2^{log_n}_{'inverse' if inverse else 'forward'}_launches"] \
+                = launches
+        del x, got
+    for log_n in (24, 26):
+        x = rand_field(torch, fs, (1 << log_n,), gen)
+        ev = HF.ntt_hopper(fs, x, False)
+        back = HF.ntt_hopper(fs, ev, True)
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, back, x)
+        del back
+        fwd = time_ms(torch, lambda i: HF.ntt_hopper(fs, x, False), 1, 3)
+        inv = time_ms(torch, lambda i: HF.ntt_hopper(fs, ev, True), 1, 3)
+        log(f"  ntt_hopper {fs.name} 2^{log_n}: inverse of forward "
+            f"max_abs_err {err}; forward {fwd:.3f} ms, inverse {inv:.3f} ms "
+            f"(peak {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB)")
+        if err != 0:
+            raise AssertionError(f"ntt_hopper round trip fails at 2^{log_n}")
+        out[f"2^{log_n}_forward_ms"], out[f"2^{log_n}_inverse_ms"] = fwd, inv
+        del x, ev
+        # the 2^26 twiddle tables hold 8 GiB: give them back
+        HF._four_step_twiddles.cache_clear()
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_longest_transform(torch, n: int) -> None:
@@ -841,13 +1272,30 @@ def main(argv=None) -> int:
 
     secs = K.build_all(verbose=args.verbose_build)
     log(f"build: {secs:.2f} s ({len(K.SOURCES)} sources, nvcc sm_90a)")
+    rate = imad_rate(torch)
+    log(f"32-bit multiply-adds with carry: {rate / 1e12:.3f} T/s measured "
+        f"(the float32 rate the bounds use: {OPS_PER_S / 1e12:.0f} T/s)")
 
     t0 = time.perf_counter()
     rows, transforms = check_kernels(torch)
     log(f"kernels: {time.perf_counter() - t0:.2f} s, launches so far "
         f"{launch_counts()}")
 
+    extra = {"imad_per_s": rate}
     if not args.kernels_only:
+        t0 = time.perf_counter()
+        extra["ntt_big"] = check_big_transforms(torch)
+        log(f"ntt past 2^20: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        field_counts = {"goldilocks": goldilocks_agreement(torch)}
+        log(f"Goldilocks circuit_1 proof, card against CPU: equal, "
+            f"verified: {time.perf_counter() - t0:.2f} s, launches "
+            f"{field_counts['goldilocks']}")
+        t0 = time.perf_counter()
+        field_counts["mnt4_fr"] = mnt4_witness_map(torch)
+        log(f"MNT4 Fr witness map, card against CPU: equal: "
+            f"{time.perf_counter() - t0:.2f} s, launches "
+            f"{field_counts['mnt4_fr']}")
         t0 = time.perf_counter()
         small_agreement(torch)
         log(f"small circuit, card against CPU: equal proofs: "
@@ -857,28 +1305,35 @@ def main(argv=None) -> int:
             dt = msm_oracle_check(curve)
             log(f"msm 2^10 on {curve.name} against its oracle: equal: "
                 f"{dt:.2f} s")
-        counts = main_path(torch)
+        paths = {"groth16_prove": main_path(torch)}
         t0 = time.perf_counter()
         small_agreement_lpc(torch)
         log(f"small LPC proof, card against CPU: equal: "
             f"{time.perf_counter() - t0:.2f} s")
-        lpc_counts, lpc_per_proof = lpc_path(torch)
+        paths["lpc_path"], paths["lpc_proof_eval"] = lpc_path(torch)
         t0 = time.perf_counter()
         small_agreement_placeholder(torch)
         log(f"small Placeholder proof, card against CPU: equal: "
             f"{time.perf_counter() - t0:.2f} s")
-        pl_counts, pl_per_prove, longest = placeholder_path(torch)
-        check_longest_transform(torch, longest)
+        extra["poseidon_device_ms"] = {}
+        for rows_log in PLACEHOLDER_LOG2_ROWS:
+            tag = "placeholder" if rows_log == 16 else f"placeholder{rows_log}"
+            (paths[tag + "_path"], paths[tag + "_prove"], longest,
+             extra["poseidon_device_ms"][f"2^{rows_log}"]) = \
+                placeholder_path(torch, rows_log)
+            check_longest_transform(torch, longest)
+        whole = [k for k in paths if k in ("groth16_prove", "lpc_path")
+                 or k.endswith("_path") and k.startswith("placeholder")]
         for row in rows:
-            name = row["name"]
-            row["launches"] = counts[name] + lpc_counts[name] \
-                + pl_counts[name]
-            row["launches_groth16_prove"] = counts[name]
-            row["launches_lpc_path"] = lpc_counts[name]
-            row["launches_lpc_proof_eval"] = lpc_per_proof[name]
-            row["launches_placeholder_path"] = pl_counts[name]
-            row["launches_placeholder_prove"] = pl_per_prove[name]
-    log(json.dumps({"ntt_2p17_ms": transforms}))
+            name, _, field = row["name"].partition("[")
+            if field:
+                # another field's instance: its launches in that field's run
+                row["launches"] = field_counts[field[:-1]][name]
+                continue
+            row["launches"] = sum(paths[k][name] for k in whole)
+            for k, counts in paths.items():
+                row["launches_" + k] = counts[name]
+    log(json.dumps({"ntt_2p17_ms": transforms, **extra}))
     log(json.dumps({"kernels": rows}))
     log(f"total: {time.perf_counter() - t_all:.2f} s")
     log(card)

@@ -1,5 +1,7 @@
 """Circuit fixtures for the port's smoke run and profiling: the R1CS the
-Groth16 path is driven with, and the PLONK table the Placeholder path is.
+Groth16 path is driven with, the PLONK table the Placeholder path is, and
+the reference's small `circuit_1` (its test fixture `tests/circuits.py`,
+after `circuits.hpp` circuit_test_1) for proofs over other fields.
 """
 from __future__ import annotations
 
@@ -21,6 +23,47 @@ def product_chain(p: int, ncons: int, v1: int = 3, v2: int = 5):
                           R.lc((3 + i, 1)))
         vals.append(vals[-2] * vals[-1] % p)
     return cs, vals[:1], vals[1:]
+
+
+def circuit_1(p: int, rng, PK=_plonk):
+    """3 witness columns, 1 public input column, 2 selectors (q_add,
+    q_mul): ADD rows w0 + w1 = w2, MUL rows w0 * w1 = w2 with w1 copied from
+    pub0[0]; 13 usable rows padded to 16. The same values as the JAX
+    package's test fixture for the same `rng`. Returns (constraint system,
+    assignment, table description, public input)."""
+    usable_rows = 13
+    w = [[0] * usable_rows for _ in range(3)]
+    pub = [0] * usable_rows
+    q_add = [0] * usable_rows
+    q_mul = [0] * usable_rows
+    copies = []
+    pub[0] = rng.randrange(p)
+    w[0][0], w[1][0], w[2][0] = (rng.randrange(p) for _ in range(3))
+    for i in range(1, usable_rows - 5):
+        w[0][i] = rng.randrange(p)
+        w[1][i] = rng.randrange(p)
+        w[2][i] = (w[0][i] + w[1][i]) % p
+        q_add[i] = 1
+    for i in range(usable_rows - 5, usable_rows):
+        w[0][i] = rng.randrange(p)
+        w[1][i] = pub[0]
+        w[2][i] = w[0][i] * w[1][i] % p
+        q_mul[i] = 1
+        copies.append((PK.Var(1, i, PK.WITNESS),
+                       PK.Var(0, 0, PK.PUBLIC_INPUT)))
+    rows = PK.pad_rows(usable_rows)
+    for col in w:
+        col.extend(rng.randrange(p) for _ in range(rows - usable_rows))
+    pub.extend([0] * (rows - usable_rows))
+    q_add.extend([0] * (rows - usable_rows))
+    q_mul.extend([0] * (rows - usable_rows))
+    assignment = PK.Assignment(w, [pub], [], [q_add, q_mul])
+    desc = PK.TableDescription(3, 1, 0, 2, usable_rows, rows)
+    w0, w1, w2 = (PK.Var(i, 0, PK.WITNESS) for i in range(3))
+    cs = PK.ConstraintSystem(
+        gates=[PK.Gate(0, [w0 + w1 - w2]), PK.Gate(1, [w0 * w1 - w2])],
+        copy_constraints=copies, public_input_sizes=[1])
+    return cs, assignment, desc, [[pub[0]]]
 
 
 def placeholder_chain(p: int, usable_rows: int, rng, table_bits: int = 8,

@@ -5,9 +5,10 @@ Counterpart of `commitments/merkle.py` of the JAX package: the equivalent of
 (`basic_fri.hpp:102-105,407,494`). Two hasher families:
 
 - `FieldHasher`: Poseidon over the commitment field. Leaf rows and node
-  levels are hashed with kernel 5 (`ops/hopper_hash.py`), one launch per two
-  absorbed rows and one per level; digests are field elements. Host scalar
-  mirror for proof validation.
+  levels are hashed with kernel 5 (`ops/hopper_hash.py`): one launch per two
+  absorbed rows, one per level down to `TREE_MAX` states, and one for all
+  the levels below; digests are field elements. Host scalar mirror for
+  proof validation.
 - `ByteHasher`: keccak/sha2/blake2b over big-endian serialized field
   elements, computed on the host with `hashlib` for every name (digests are
   bytes). Used for the byte-hash test combos; the hot path is Poseidon.
@@ -15,8 +16,8 @@ Counterpart of `commitments/merkle.py` of the JAX package: the equivalent of
 Trees keep their levels resident (device tensors for FieldHasher, down to the
 root); only the root and the queried authentication paths are ever decoded to
 host. The JAX package finishes the levels under 128 digests on the host to
-save its dispatches; here a level is one launch at any size, so a Poseidon
-tree has no host part.
+save its dispatches; here the card's tree form hashes them in one launch, so
+a Poseidon tree has no host part.
 """
 from __future__ import annotations
 
@@ -82,6 +83,11 @@ class FieldHasher:
                   right: torch.Tensor) -> torch.Tensor:
         return self._po.hash2_batch(self.pp, left, right)
 
+    def node_levels(self, digests: torch.Tensor) -> list[torch.Tensor]:
+        """Every level above (NL, 2S) digests, S a power of two up to
+        `hopper_hash.TREE_MAX`, down to the root: one launch."""
+        return HH.poseidon_tree_hopper(self.pp, digests)
+
     # host
     def leaf_hash_rows_host(self, elems: list[int]) -> int:
         state = [0, 0, 0]
@@ -122,11 +128,16 @@ class ByteHasher:
 
 def _device_levels(hasher, digests: torch.Tensor) -> list[torch.Tensor]:
     """(NL, n) leaf digests -> the digest planes of every level down to the
-    root, one launch of kernel 5 a level; a level's even and odd digests are
-    read in place."""
+    root: one launch of kernel 5 a level while a level has more than
+    `TREE_MAX` states, then one launch for all the rest; a level's even and
+    odd digests are read in place."""
     levels = [digests]
     while levels[-1].shape[-1] > 1:
         cur = levels[-1]
+        n = cur.shape[-1]
+        if n <= 2 * HH.TREE_MAX and n & (n - 1) == 0:
+            levels.extend(hasher.node_levels(cur))
+            break
         levels.append(hasher.node_hash(cur[..., 0::2], cur[..., 1::2]))
     return levels
 

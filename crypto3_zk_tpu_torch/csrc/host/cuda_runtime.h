@@ -5,7 +5,8 @@
 // (tools/host_kernels.py builds with it; it is never used on the card).
 //
 // A launch runs its blocks one after another; inside a block every CUDA
-// thread is a std::thread, `__syncthreads` is a std::barrier, and dynamic
+// thread is a std::thread, `__syncthreads` is a std::barrier over the block
+// and `__syncwarp` one over the thread's warp (32 threads), and dynamic
 // shared memory is one global array that the kernels' `extern __shared__
 // uint32_t sh[]` names. A kernel must not return before its last barrier in
 // some threads only; none here does. The `<<<...>>>` launch syntax is
@@ -18,6 +19,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -26,6 +28,7 @@ struct HostDim3 {
 };
 inline thread_local HostDim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* host_block_barrier = nullptr;
+inline thread_local std::barrier<>* host_warp_barrier = nullptr;
 
 #define __global__
 #define __device__
@@ -38,6 +41,7 @@ inline std::barrier<>* host_block_barrier = nullptr;
 alignas(16) inline uint32_t sh[57 * 1024];   // 228 KB, an SM's shared memory
 
 inline void __syncthreads() { host_block_barrier->arrive_and_wait(); }
+inline void __syncwarp() { host_warp_barrier->arrive_and_wait(); }
 inline unsigned __brev(unsigned v) {
   unsigned r = 0;
   for (int i = 0; i < 32; ++i) {
@@ -75,14 +79,20 @@ inline void host_launch(long long blocks, int threads, size_t smem,
     std::fill(sh, sh + sizeof(sh) / sizeof(sh[0]), 0xDEADBEEFu);
     std::barrier<> barrier(threads);
     host_block_barrier = &barrier;
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    for (int w = 0; w < (threads + 31) / 32; ++w)
+      warps.push_back(
+          std::make_unique<std::barrier<>>(std::min(32, threads - 32 * w)));
     std::vector<std::thread> pool;
     for (int t = 0; t < threads; ++t)
       pool.emplace_back([&, t, b] {
+        host_warp_barrier = warps[t / 32].get();
         threadIdx = {(unsigned)t, 0, 0};
         blockIdx = {(unsigned)b, 0, 0};
         blockDim = {(unsigned)threads, 1, 1};
         gridDim = {(unsigned)blocks, 1, 1};
         body();
+        host_warp_barrier->arrive_and_drop();
         barrier.arrive_and_drop();
       });
     for (auto& th : pool) th.join();

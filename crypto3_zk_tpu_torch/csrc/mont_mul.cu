@@ -68,11 +68,9 @@ static int dispatch(int nw, const uint32_t* consts, const void* a,
   Strides A{sa[0], sa[1], sa[2], sa[3]};
   Strides B{sb[0], sb[1], sb[2], sb[3]};
   cudaStream_t st = (cudaStream_t)stream;
-  if (nw == 8)
-    return launch_elementwise<8, OP>(consts, a, b, out, d0, d1, d2, A, B, st);
-  if (nw == 12)
-    return launch_elementwise<12, OP>(consts, a, b, out, d0, d1, d2, A, B, st);
-  return (int)cudaErrorInvalidValue;
+  ZK_DISPATCH_NW(nw, return (launch_elementwise<NW, OP>(
+                         consts, a, b, out, d0, d1, d2, A, B, st)));
+  return 0;
 }
 
 // sa, sb: {stride d0, stride d1, stride d2, limb stride} in int32 elements.

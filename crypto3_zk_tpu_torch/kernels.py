@@ -40,7 +40,12 @@ SOURCES: dict[str, dict[str, list]] = {
                      "zk_inv_tail": [_I, _P, _P, _P, _I, _P]},
     "mul3.cu": {"zk_mul3": [_I, _P, _P, _P, _P, _P, _I, _LL, _P]},
     "poseidon.cu": {"zk_poseidon_permute": [_I, _P, _P, _P, _P, _P, _P, _LL,
-                                            _P]},
+                                            _I, _P],
+                    "zk_poseidon_tree": [_I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                         _P]},
+    # a measurement loop, no kernel of a path (`chip_smoke.py` reads the
+    # card's integer multiply-add rate with it)
+    "rate.cu": {"zk_imad_rate": [_P, _I, _I, _I, _P]},
 }
 
 _entry_points: dict[str, object] = {}
@@ -129,27 +134,47 @@ def stream_ptr() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+# digits of the fields that have a kernel instance (`csrc/field.cuh`): 4
+# (Goldilocks, p may fill its top word), 16 and 24 (p below 2^(32*NW - 1)),
+# and 19 (the MNT4/MNT6 scalar fields, R = 2^304, a half top word)
+INSTANCE_DIGITS = (4, 16, 19, 24)
+
+
+def words(nl: int) -> int:
+    """32-bit words the kernels hold a field element of `nl` digits in."""
+    return (nl + 1) // 2
+
+
+def fuse_words(digits):
+    """(NL, ...) 16-bit digits (a numpy array) -> (NW, ...) uint32 words,
+    digit pairs fused; an odd count's top word has its low digit only."""
+    import numpy as np
+    d = np.asarray(digits).astype(np.uint32)
+    if d.shape[0] % 2:
+        d = np.concatenate([d, np.zeros_like(d[:1])])
+    return d[0::2] | (d[1::2] << 16)
+
+
 def field_consts(fs):
     """The field's constants as the kernels take them: NW words of p, NW
     words of R mod p and -p^-1 mod 2^32, as a host `uint32` array. Cached on
-    the `FieldSpec`."""
+    the `FieldSpec`. A field that no instance covers is refused."""
     cached = fs.__dict__.get("_kernel_consts")
     if cached is None:
-        if fs.nl % 2:
+        if fs.nl not in INSTANCE_DIGITS:
             raise ValueError(
-                f"{fs.name}: the CUDA kernels take fields with an even "
-                f"number of 16-bit digits, not {fs.nl}")
-        nw = fs.nl // 2
-        if nw not in (8, 12):
-            raise ValueError(f"{fs.name}: no kernel instance for {nw} words")
-        if fs.p.bit_length() > 32 * nw - 1:
+                f"{fs.name}: no kernel instance for {fs.nl} 16-bit digits "
+                f"(instances: {INSTANCE_DIGITS})")
+        nw = words(fs.nl)
+        if fs.nl in (16, 24) and fs.p.bit_length() > 32 * nw - 1:
             raise ValueError(
-                f"{fs.name}: the kernels' carry chains need the top bit of "
-                f"the top word free, and p has {fs.p.bit_length()} bits")
+                f"{fs.name}: the {nw}-word instance's carry chains need the "
+                f"top bit of the top word free, and p has "
+                f"{fs.p.bit_length()} bits")
         mask = (1 << 32) - 1
-        words = [(fs.p >> (32 * j)) & mask for j in range(nw)]
-        words += [(fs.R_mod_p >> (32 * j)) & mask for j in range(nw)]
-        words.append((-pow(fs.p, -1, 1 << 32)) % (1 << 32))
-        cached = (nw, (ctypes.c_uint32 * len(words))(*words))
+        vals = [(fs.p >> (32 * j)) & mask for j in range(nw)]
+        vals += [(fs.R_mod_p >> (32 * j)) & mask for j in range(nw)]
+        vals.append((-pow(fs.p, -1, 1 << 32)) % (1 << 32))
+        cached = (nw, (ctypes.c_uint32 * len(vals))(*vals))
         object.__setattr__(fs, "_kernel_consts", cached)
     return cached

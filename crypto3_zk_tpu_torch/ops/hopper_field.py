@@ -18,10 +18,12 @@ Counterpart of `ops/pallas_field.py` of the JAX package.
   products and to every trip through shared memory, so a thread keeps 4
   elements in registers for 2 stages between barriers, the twiddles are
   staged once per block, and a block takes several rows when they are short.
-- `ntt_hopper(fs, x, inverse)`: the four-step transform as two launches of
-  kernel 2 and nothing else: the first reads columns and multiplies by
-  w_N^(c*k2) before its store, the second reads and writes columns and, on
-  the inverse, multiplies by 1/N.
+- `ntt_hopper(fs, x, inverse)`: the four-step transform of any 2^k. Up to
+  2^20 it is two launches of kernel 2 and nothing else: the first reads
+  columns and multiplies by w_N^(c*k2) before its store, the second reads
+  and writes columns and, on the inverse, multiplies by 1/N. Above, a side
+  longer than 2^10 is itself a batched four-step, and a twiddle that cannot
+  ride in a row launch is one launch of kernel 1.
 
 Each wrapper runs its plain PyTorch version only for a tensor that lies on
 the CPU. On a CUDA tensor it launches the kernel or raises. `LAUNCHES`
@@ -494,8 +496,7 @@ def _twiddle_words(fs: FieldSpec, log_b: int, inverse: bool, device: str):
     """The table kernel 2 stages in shared memory: (NW, B/2) int32, digit
     pairs of w^j fused to 32-bit words, slot m holding j = the bit reversal
     of m over log B - 1 bits (stage t then reads the slots below 2^(t-1))."""
-    d = _twiddles_np(fs, log_b, inverse).astype(np.uint32)
-    words = d[0::2] | (d[1::2] << 16)
+    words = K.fuse_words(_twiddles_np(fs, log_b, inverse))
     words = words[:, bitrev_perm(log_b - 1)]
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)) \
         .to(device)
@@ -550,7 +551,7 @@ def _rows_launch(fs: FieldSpec, x: torch.Tensor, mul, out):
             and (m_rows >> (log_g + 1)) >= _ROWS_MIN_BLOCKS:
         log_g += 1
     threads = min(_ROWS_MAX_THREADS, max(32, (b << log_g) >> 2))
-    smem = (nl // 2) * ((b << log_g) + b // 2) * 4
+    smem = K.words(nl) * ((b << log_g) + b // 2) * 4
     return (m_rows, log_b, log_g, threads, smem, _row_strides(x), mul_view,
             out_strides)
 
@@ -591,19 +592,29 @@ def ntt_rows_hopper(fs: FieldSpec, x: torch.Tensor, inverse: bool,
 @functools.lru_cache(maxsize=None)
 def _four_step_twiddles(fs: FieldSpec, n: int, r: int, c: int,
                         inverse: bool, device: str) -> torch.Tensor:
-    """(NL, C, R) table w_N^(c * k2), Montgomery form."""
-    p = fs.p
+    """(NL, C, R) table w_N^(c * k2), Montgomery form, built where it is
+    used by doubling with the plain product (a one-time table: no host loop
+    over its N entries, no kernel launch): row 1 is the powers of w_N, rows
+    [j, 2j) are rows [0, j) times row j, and row 2j is row j squared."""
     omega = fs.root_of_unity(n)
     if inverse:
-        omega = pow(omega, -1, p)
-    vals = []
-    for cc in range(c):
-        base = pow(omega, cc, p)
-        acc = fs.R_mod_p
-        for _ in range(r):
-            vals.append(acc)
-            acc = acc * base % p
-    return L.from_numpy(L.pack_ints(fs, vals).reshape(fs.nl, c, r), device)
+        omega = pow(omega, -1, fs.p)
+    one = L.encode(fs, [1], device)
+    step = L.encode(fs, [omega], device)
+    row = one
+    while row.shape[1] < r:
+        row = torch.cat([row, mont_mul_plain(fs, row, step)], dim=1)
+        step = mont_mul_plain(fs, step, step)
+    row = row[:, :r]
+    out = torch.empty((fs.nl, c, r), dtype=torch.int32, device=device)
+    out[:, 0] = one
+    j = 1
+    while j < c:
+        out[:, j:2 * j] = mont_mul_plain(fs, out[:, :j], row[:, None, :])
+        if 2 * j < c:
+            row = mont_mul_plain(fs, row, row)
+        j *= 2
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -612,18 +623,58 @@ def _inverse_scale(fs: FieldSpec, n: int, device: str) -> torch.Tensor:
     return L.const_mont(fs, pow(n, -1, fs.p), (1, 1), device).contiguous()
 
 
-def _transform(fs: FieldSpec, x: torch.Tensor, inverse: bool, scale,
-               rows=ntt_rows_hopper):
-    """NTT of x (NL, N) along the last axis, N = 2^k <= 2^20, times `scale`
-    (an (NL, 1, 1) constant or None), through the row transform `rows`.
+def _lines(fs: FieldSpec, x: torch.Tensor, m: int, out: torch.Tensor,
+           inverse: bool, scale, rows, mul) -> None:
+    """NTTs of m interleaved lines into `out`, times `scale` (an (NL, 1, 1)
+    constant or None), through the row transform `rows` and the product
+    `mul`. x and out are (NL, m*L) with any stride along the last axis and
+    do not share storage; element l of line i sits at l*m + i in both.
 
     Up to 2^10 one launch of the row kernel does it. Above that, the
-    four-step split N = R*C:
-    X[k1*R + k2] = NTT_C over c { w_N^(c*k2) * NTT_R over r { x[r*C+c] } },
-    two launches: the first transforms the columns of x as an (R, C) matrix
-    and stores w_N^(c*k2) times the result as rows (c, k2); the second
-    transforms the columns of that, scales, and stores them as the columns
-    of the output as a (C, R) matrix."""
+    four-step split L = L1*L2 of every line, L1 = min(2^10, the larger
+    half), so that the first side always fits one launch:
+    X[k1*L1 + k2] = NTT_L2 over c { w_L^(c*k2) * NTT_L1 over r { x[r*L2+c] } }.
+    Element r*L2 + c of line i sits at r*(L2*m) + (c*m + i): the first
+    transforms are the m*L2 interleaved lines (c, i) of length L1, and the
+    second the m*L1 interleaved lines (k2, i) of length L2, whose outputs
+    land where the full transform's belong. A second side above 2^10 is
+    again a four-step through this function.
+    - one line (m = 1): the first launch reads the columns of x as an
+      (L1, L2) matrix and stores w_L^(c*k2) times the result as rows
+      (c, k2), the twiddle riding in it; up to 2^20 two launches in all;
+    - more lines: the first transforms write `out` (dead until the second
+      ones), and one launch of kernel 1 multiplies by w_L^(c*k2) while it
+      moves the lines from (k2, c, i) order into (c, k2, i), where the
+      second transforms find them interleaved. The twiddle depends on c and
+      k2 but not on i, which a row launch's multiplier cannot express.
+    Besides x and out, one (NL, m*L) temporary per level is live, two at
+    most in all."""
+    nl, n = x.shape
+    length = n // m
+    log_l = length.bit_length() - 1
+    if log_l <= _MAX_ROW_LOG:
+        rows(fs, x.unflatten(1, (length, m)).transpose(1, 2), inverse,
+             mul=scale, out=out.unflatten(1, (length, m)).transpose(1, 2))
+        return
+    l1 = 1 << min(_MAX_ROW_LOG, log_l - log_l // 2)
+    l2 = length // l1
+    tw = _four_step_twiddles(fs, length, l1, l2, inverse,
+                             str(x.device))                 # (NL, L2, L1)
+    if m == 1:
+        mid = rows(fs, x.unflatten(1, (l1, l2)).transpose(1, 2), inverse,
+                   mul=tw)                                  # (NL, c, k2)
+    else:
+        _lines(fs, x, m * l2, out, inverse, None, rows, mul)
+        mid = mul(fs, out.unflatten(1, (l1, l2, m)).permute(0, 2, 1, 3),
+                  tw[..., None])                            # (NL, c, k2, i)
+    _lines(fs, mid.reshape(nl, n), m * l1, out, inverse, scale, rows, mul)
+
+
+def _transform(fs: FieldSpec, x: torch.Tensor, inverse: bool, scale,
+               rows=ntt_rows_hopper, mul=mont_mul_hopper):
+    """NTT of x (NL, N) along the last axis, N = 2^k, times `scale` (an
+    (NL, 1, 1) constant or None), through the row transform `rows` and,
+    above 2^20, the product `mul` (`_lines` has the split)."""
     nl, n = x.shape
     log_n = n.bit_length() - 1
     assert 1 << log_n == n, "NTT size must be a power of two"
@@ -631,21 +682,9 @@ def _transform(fs: FieldSpec, x: torch.Tensor, inverse: bool, scale,
         return x
     if log_n <= _MAX_ROW_LOG:
         return rows(fs, x[:, None, :], inverse, mul=scale)[:, 0, :]
-    # C <= R: the second launch reads and writes columns and so gains most
-    # from short rows, which let a block take more of them side by side
-    log_c = log_n // 2
-    if log_n - log_c > _MAX_ROW_LOG:
-        raise ValueError(f"NTT of 2^{log_n} exceeds the four-step range "
-                         f"(2^{2 * _MAX_ROW_LOG})")
-    c = 1 << log_c
-    r = n >> log_c
-    tw = _four_step_twiddles(fs, n, r, c, inverse, str(x.device))
-    mid = rows(fs, x.reshape(nl, r, c).transpose(1, 2), inverse,
-               mul=tw)                                     # (NL, c, k2)
     out = torch.empty((nl, n), dtype=torch.int32, device=x.device)
-    rows(fs, mid.transpose(1, 2), inverse, mul=scale,
-         out=out.reshape(nl, c, r).transpose(1, 2))
-    return out                                             # (NL, k1*R + k2)
+    _lines(fs, x, 1, out, inverse, scale, rows, mul)
+    return out
 
 
 def ntt_hopper_raw(fs: FieldSpec, x: torch.Tensor,
@@ -655,18 +694,20 @@ def ntt_hopper_raw(fs: FieldSpec, x: torch.Tensor,
 
 
 def ntt_hopper(fs: FieldSpec, x: torch.Tensor, inverse: bool = False,
-               rows=ntt_rows_hopper) -> torch.Tensor:
-    """Full NTT of x (NL, N); the inverse's 1/N factor rides in the last
-    launch. `ntt_plain` is this with the plain row transform. `LARGEST`
-    keeps the longest N seen."""
+               rows=ntt_rows_hopper, mul=mont_mul_hopper) -> torch.Tensor:
+    """Full NTT of x (NL, N), any N = 2^k; the inverse's 1/N factor rides in
+    the last launch. `ntt_plain` is this with the plain row transform and
+    product. `LARGEST` keeps the longest N seen."""
     LARGEST["ntt_hopper"] = max(LARGEST["ntt_hopper"], x.shape[1])
     scale = _inverse_scale(fs, x.shape[1], str(x.device)) \
         if inverse and x.shape[1] > 1 else None
-    return _transform(fs, x, inverse, scale, rows)
+    return _transform(fs, x, inverse, scale, rows, mul)
 
 
 def ntt_plain(fs: FieldSpec, x: torch.Tensor,
               inverse: bool = False) -> torch.Tensor:
     """The plain version of `ntt_hopper`: the same split, strided views and
-    multipliers, every row transform by `ntt_rows_plain`."""
-    return ntt_hopper(fs, x, inverse, rows=ntt_rows_plain)
+    multipliers, every row transform by `ntt_rows_plain` and every twiddle
+    product by `mont_mul_plain`."""
+    return ntt_hopper(fs, x, inverse, rows=ntt_rows_plain,
+                      mul=mont_mul_plain)

@@ -1,15 +1,24 @@
 """CUDA kernel for the Poseidon permutation of a batch of states.
 
-Kernel 5, `poseidon_permute_hopper(pp, ins, adds, lane0_only)`: the width-3
-permutation of n independent states in ONE launch. It has no Pallas
-counterpart: the JAX package composes the permutation from elementwise field
-ops (`ops/poseidon.py::permute_batch`, `ops/nil_poseidon.py::permute_batch`)
-and leaves the fusion to its compiler; composed from `limbs.mont_mul` calls
-here it would be some 1,200 launches a permutation. Source:
-`csrc/poseidon.cu`. One thread per state, the three elements in registers,
-the round constants and the MDS matrix staged once per block in shared
-memory. It moves 6*NL*4 bytes a state for about 830 Montgomery products: the
-operations bound it.
+Kernel 5: the width-3 permutation of n independent states in ONE launch. It
+has no Pallas counterpart: the JAX package composes the permutation from
+elementwise field ops (`ops/poseidon.py::permute_batch`,
+`ops/nil_poseidon.py::permute_batch`) and leaves the fusion to its compiler;
+composed from `limbs.mont_mul` calls here it would be some 1,200 launches a
+permutation. Source: `csrc/poseidon.cu`, which says what bounds each form.
+A state moves 6*NL*4 bytes for about 830 Montgomery products: the
+operations bound it, and on small levels their latency.
+
+- `poseidon_permute_hopper(pp, ins, adds, lane0_only)` picks one of two
+  forms by the number of states n: up to `SHARED_MAX`, three threads a
+  state (`form="shared"`, 390 products in sequence instead of 828: small
+  levels are bound by that latency); above, one thread a state
+  (`form="lanes"`, the fewest products: large levels are bound by the
+  rate). A caller may name the form.
+- `poseidon_tree_hopper(pp, digests)`: a Merkle tree's last levels, from at
+  most `TREE_MAX` states down to the root, in ONE launch of one block (the
+  shared form with a barrier between levels); every level's digests come
+  back as their own plane.
 
 One entry serves both flavours. The parameter object `pp` carries the
 schedule as data: `round_constants` (rounds x 3 ints), `mds` (3 x 3 ints),
@@ -25,9 +34,9 @@ element. `adds`, where given, are added to elements 0 and 1 before the
 permutation (the sponge's absorb). `lane0_only` returns element 0 alone,
 (NL, n), else the whole state.
 
-The wrapper runs the plain version only when every tensor lies on the CPU;
-given a CUDA tensor it launches the kernel or raises. `LAUNCHES` counts
-launches, `ELEMENTS` the states they ran on.
+The wrappers run the plain version only when every tensor lies on the CPU;
+given a CUDA tensor they launch a kernel or raise. `LAUNCHES` counts
+launches of each form, `ELEMENTS` the states they ran on.
 """
 from __future__ import annotations
 
@@ -42,8 +51,17 @@ from . import limbs as L
 from .hopper_field import (add_plain, matvec_table, mont_matvec_plain,
                            mont_mul_plain)
 
-LAUNCHES = {"poseidon": 0}
-ELEMENTS = {"poseidon": 0}
+LAUNCHES = {"poseidon": 0, "poseidon_shared": 0, "poseidon_tree": 0}
+ELEMENTS = {"poseidon": 0, "poseidon_shared": 0, "poseidon_tree": 0}
+
+# states up to which `poseidon_permute_hopper` takes three threads a state:
+# where that form's shorter chain beats the one-thread form's fewer products
+# (`chip_smoke.py` times both forms from 64 to 2^17 states; on an H100,
+# shared against one thread: 0.189 / 0.376 ms up to 2^12, 0.262 / 0.380 at
+# 2^13, 0.507 / 0.380 at 2^14, 2.970 / 2.263 at 2^17)
+SHARED_MAX = 1 << 13
+TREE_MAX = 64             # states at the first level the tree form takes
+_FORMS = {"lanes": (0, "poseidon"), "shared": (1, "poseidon_shared")}
 
 
 def products_per_state(pp) -> int:
@@ -83,8 +101,7 @@ def _mds_table(pp, device: str) -> torch.Tensor:
 def _const_words(pp, device: str) -> torch.Tensor:
     """The table the kernel stages in shared memory: (rounds*3 + 9, NW)
     int32, digit pairs fused to 32-bit words."""
-    d = _const_digits_np(pp).astype(np.uint32)
-    words = (d[0::2] | (d[1::2] << 16)).T
+    words = K.fuse_words(_const_digits_np(pp)).T
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)) \
         .to(device)
 
@@ -181,12 +198,18 @@ def plane_args(ins, adds):
 
 
 def poseidon_permute_hopper(pp, ins, adds=(None, None),
-                            lane0_only: bool = False) -> torch.Tensor:
+                            lane0_only: bool = False,
+                            form: str | None = None) -> torch.Tensor:
     """Kernel 5. ins: three (NL, n) planes, the state's elements (None = 0);
     adds: two planes added to elements 0 and 1 first (None = nothing).
-    Returns the permuted state (NL, 3, n), or its element 0 (NL, n)."""
+    Returns the permuted state (NL, 3, n), or its element 0 (NL, n).
+    `form` ("lanes" or "shared") names the kernel form; by default the
+    shared one up to `SHARED_MAX` states, else the lanes one."""
     fs = pp.fs
     n, device = _lanes(fs, ins, adds)
+    if form is None:
+        form = "shared" if n <= SHARED_MAX else "lanes"
+    code_form, name = _FORMS[form]
     if device.type != "cuda":
         return poseidon_permute_plain(pp, ins, adds, lane0_only)
     nw, fconsts = K.field_consts(fs)
@@ -196,8 +219,58 @@ def poseidon_permute_hopper(pp, ins, adds=(None, None),
     code = K.entry("zk_poseidon_permute")(
         nw, fconsts, ptrs, strides, _schedule(pp, lane0_only),
         _const_words(pp, str(device)).data_ptr(), out.data_ptr(), n,
-        K.stream_ptr())
+        code_form, K.stream_ptr())
     K.check(code, "zk_poseidon_permute")
-    LAUNCHES["poseidon"] += 1
-    ELEMENTS["poseidon"] += n
+    LAUNCHES[name] += 1
+    ELEMENTS[name] += n
     return out
+
+
+def _tree_states(fs, digests: torch.Tensor) -> int:
+    """States at the tree form's first level; refuses what it does not
+    take. Pure shape work, the same on any device."""
+    if digests.dtype != torch.int32 or digests.dim() != 2 \
+            or digests.shape[0] != fs.nl:
+        raise TypeError("poseidon_tree: digests are (NL, 2S) int32 digits")
+    s = digests.shape[1] // 2
+    if s < 1 or 2 * s != digests.shape[1] or s & (s - 1) or s > TREE_MAX:
+        raise ValueError(f"poseidon_tree: {digests.shape[1]} digests; the "
+                         f"tree form takes 2S, S a power of two up to "
+                         f"{TREE_MAX}")
+    return s
+
+
+def poseidon_tree_plain(pp, digests: torch.Tensor) -> list[torch.Tensor]:
+    """The levels one plain permutation at a time."""
+    _tree_states(pp.fs, digests)
+    levels, cur = [], digests
+    while cur.shape[1] > 1:
+        cur = poseidon_permute_plain(pp, (cur[:, 0::2], cur[:, 1::2], None),
+                                     lane0_only=True)
+        levels.append(cur)
+    return levels
+
+
+def poseidon_tree_hopper(pp, digests: torch.Tensor) -> list[torch.Tensor]:
+    """Kernel 5, tree form. digests: (NL, 2S) one Merkle level, S a power
+    of two up to `TREE_MAX`. Returns the digest planes of every level above
+    it, (NL, S) first and (NL, 1), the root, last, all from one launch."""
+    fs = pp.fs
+    s = _tree_states(fs, digests)
+    if not digests.is_cuda:
+        return poseidon_tree_plain(pp, digests)
+    nw, fconsts = K.field_consts(fs)
+    levels = [torch.empty((fs.nl, s >> lvl), dtype=torch.int32,
+                          device=digests.device)
+              for lvl in range(s.bit_length())]
+    ptrs, strides = plane_args((digests[:, 0::2], digests[:, 1::2], None),
+                               (None, None))
+    outs = (ctypes.c_void_p * len(levels))(*[t.data_ptr() for t in levels])
+    code = K.entry("zk_poseidon_tree")(
+        nw, fconsts, ptrs, strides, _schedule(pp, True),
+        _const_words(pp, str(digests.device)).data_ptr(), outs, s,
+        len(levels), K.stream_ptr())
+    K.check(code, "zk_poseidon_tree")
+    LAUNCHES["poseidon_tree"] += 1
+    ELEMENTS["poseidon_tree"] += 2 * s - 1
+    return levels

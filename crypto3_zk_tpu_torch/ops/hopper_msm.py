@@ -93,7 +93,7 @@ def scan_geometry(nl: int, k: int, c: int):
     share = 1
     while share < _SCAN_MAX_SHARE and k >= 2 * share * _SCAN_MIN_RUN:
         share *= 2
-    smem = (nl // 2) * (k + share) * _SCAN_TILE * 4
+    smem = K_.words(nl) * (k + share) * _SCAN_TILE * 4
     if smem > _SCAN_SMEM_MAX:
         raise ValueError(f"inv_scans: a tile of {_SCAN_TILE} chunks of K = "
                          f"{k} elements ({smem} bytes) does not fit in "

@@ -55,7 +55,8 @@ def _log2(n: int) -> int:
 def _each_line(fs: FieldSpec, x: torch.Tensor, transform) -> torch.Tensor:
     """`transform` (a function of an (NL, N) tensor) on every line of a
     batched (NL, *batch, N) tensor: the four-step split takes one line at a
-    time, as strided views of x, two launches of kernel 2 a line."""
+    time, as strided views of x (two launches of kernel 2 a line up to
+    2^20)."""
     lines = x.reshape(fs.nl, -1, x.shape[-1])
     out = torch.stack([transform(lines[:, i]) for i in range(lines.shape[1])],
                       dim=1)
@@ -82,8 +83,8 @@ def ntt_raw(fs: FieldSpec, x: torch.Tensor,
 def ntt(fs: FieldSpec, x: torch.Tensor, inverse: bool = False) -> torch.Tensor:
     """Forward: coefficients -> evaluations on the radix-2 domain (natural
     order: index i holds f(w^i)). Inverse: evaluations -> coefficients.
-    Transform along the last axis of (NL, *batch, N), any N = 2^k up to the
-    four-step range, on either device."""
+    Transform along the last axis of (NL, *batch, N), any N = 2^k, on
+    either device."""
     n = x.shape[-1]
     log_n = _log2(n)
     if n == 1:
@@ -149,8 +150,7 @@ def divide_by_vanishing(fs: FieldSpec, coeffs: torch.Tensor,
     F evaluated on the coset g*D_m (where Z never vanishes), one batched
     inverse of Z(g w^i) = g^n w^(i n) - 1, and back. coeffs: (NL, m) with
     m > n_rows a power of two, on either device; returns (NL, m)
-    coefficients of T (the top n_rows are zero). On the card m is at most
-    the four-step's 2^20: a larger transform raises."""
+    coefficients of T (the top n_rows are zero)."""
     m = coeffs.shape[-1]
     assert m > n_rows and m & (m - 1) == 0
     g = fs.generator

@@ -5,7 +5,8 @@
 
 Each source under `csrc/` is rewritten (only its `<<<...>>>` launches, into
 `host_launch(...)`), compiled by `g++ -std=c++20` against the stand-in
-`csrc/host/cuda_runtime.h` into `build/crypto3_zk_tpu_torch/host/`, and bound
+`csrc/host/cuda_runtime.h` into `build/crypto3_zk_tpu_torch/host/` (every
+source at the first use of any, the compilers running together), and bound
 with the same argument types as the real library. The entry points then take
 the `data_ptr()` of CPU tensors, and a null stream. What this checks is the
 kernels' logic: indexing, strides, shared memory, barriers, and the
@@ -53,36 +54,51 @@ def compiler() -> str | None:
     return shutil.which("g++")
 
 
-def _build(source: str) -> ctypes.CDLL:
-    out_dir = K.build_dir() / "host"
-    out_dir.mkdir(parents=True, exist_ok=True)
+def _library(source: str):
+    """(path of the source's host library, its rewritten text)."""
     text = rewrite_launches((K.CSRC / source).read_text())
     tag = hashlib.sha1(
         (K.CSRC / "field.cuh").read_bytes()
         + (K.CSRC / "host" / "cuda_runtime.h").read_bytes()
         + text.encode()).hexdigest()[:12]
     stem = source.rsplit(".", 1)[0]
-    lib = out_dir / f"lib{stem}-{tag}.so"
-    if not lib.exists():
-        cpp = out_dir / f"{stem}-{tag}.cpp"
+    return K.build_dir() / "host" / f"lib{stem}-{tag}.so", text
+
+
+def build_all() -> None:
+    """Compile every source that has no current host library, all `g++`
+    runs at once, and load them."""
+    (K.build_dir() / "host").mkdir(parents=True, exist_ok=True)
+    procs = []
+    for source in K.SOURCES:
+        lib, text = _library(source)
+        if source in _libs or lib.exists():
+            continue
+        cpp = lib.with_name(lib.name[3:]).with_suffix(".cpp")
         cpp.write_text(text)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run(
+        procs.append((tmp, lib, subprocess.Popen(
             [compiler(), "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
              "-I", str(K.CSRC / "host"), "-I", str(K.CSRC), "-o", str(tmp),
-             str(cpp)], check=True)
+             str(cpp)])))
+    for tmp, lib, proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"g++ failed for {lib.name}")
         os.replace(tmp, lib)
-    dll = ctypes.CDLL(str(lib))
-    for name, argtypes in K.SOURCES[source].items():
-        fn = getattr(dll, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return dll
+    for source in K.SOURCES:
+        if source not in _libs:
+            dll = ctypes.CDLL(str(_library(source)[0]))
+            for name, argtypes in K.SOURCES[source].items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[source] = dll
 
 
 def entry(name: str):
-    """The C entry point `name`, compiled for the CPU at first use."""
+    """The C entry point `name`, every source compiled for the CPU at the
+    first use of any."""
     source = next(s for s, entries in K.SOURCES.items() if name in entries)
     if source not in _libs:
-        _libs[source] = _build(source)
+        build_all()
     return getattr(_libs[source], name)

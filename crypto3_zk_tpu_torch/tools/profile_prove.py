@@ -2,7 +2,7 @@
 spends its time on the GPU.
 
     python3 -m crypto3_zk_tpu_torch.tools.profile_prove [--lpc | --placeholder]
-        [--out f.json]
+        [--rows-log2 K] [--out f.json]
 
 By default it generates a key for the product-chain circuit of 2^16
 constraints over alt_bn128 (the size `chip_smoke.py` proves). With `--lpc`
@@ -12,7 +12,8 @@ D0 = 2^18, lambda 40, Poseidon trees) and commits both batches; "prove" below
 is then one `LPCScheme.proof_eval`. With `--placeholder` it preprocesses the
 Placeholder deployment `chip_smoke.py` drives (`tools/placeholder_fixture.py`:
 `placeholder_chain` at 2^16 rows over bls12-381 Fr, D0 = 2^18, lambda 40,
-Poseidon trees), and "prove" is one Placeholder `prove`. Each way it proves
+Poseidon trees; `--rows-log2` sets another size), and "prove" is one
+Placeholder `prove`. Each way it proves
 once to warm up
 (kernel build, base encoding, cached tables), then proves three more times:
 
@@ -47,7 +48,8 @@ LOG2_CONSTRAINTS = 16
 # the port's own kernels as the profiler names them (csrc/*.cu)
 _OWN_KERNELS = ("void elementwise_kernel<", "void ntt_rows_kernel<",
                 "void inv_scans_kernel<", "void inv_tail_kernel<",
-                "void mul3_kernel<", "void poseidon_kernel<")
+                "void mul3_kernel<", "void poseidon_kernel<",
+                "void poseidon_shared_kernel<", "void poseidon_tree_kernel<")
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
          "gamma": 0x456789A, "delta": 0x56789AB}
 
@@ -57,6 +59,19 @@ def _timed(prove):
     proof = prove()
     torch.cuda.synchronize()
     return proof, time.perf_counter() - t0
+
+
+def poseidon_device_ms(device: dict) -> dict:
+    """Device ms and calls of each form of kernel 5 in a `_device_profile`
+    result."""
+    out = {}
+    for k in device["port_kernels"]:
+        if k["name"].startswith("void poseidon"):
+            form = k["name"].split("<", 1)[0][len("void "):]
+            ms, calls = out.get(form, (0.0, 0))
+            out[form] = (ms + k["device_ms"], calls + k["calls"])
+    return {form: {"device_ms": ms, "calls": calls}
+            for form, (ms, calls) in out.items()}
 
 
 def _device_profile(prove) -> dict:
@@ -144,15 +159,15 @@ def _lpc_setup() -> tuple:
     return facts, prove, accept, phases
 
 
-def _placeholder_setup() -> tuple:
-    """The Placeholder workload, as `_groth16_setup`."""
+def _placeholder_setup(rows_log: int = LOG2_CONSTRAINTS) -> tuple:
+    """The Placeholder workload at 2^rows_log rows, as `_groth16_setup`."""
     from ..commitments.fri import PhaseClock
     from .placeholder_fixture import PlaceholderRun
 
-    run = PlaceholderRun(LOG2_CONSTRAINTS, "cuda")
+    run = PlaceholderRun(rows_log, "cuda")
     clock = PhaseClock("cuda")
     run.preprocess(clock)
-    facts = {"workload": "placeholder_prove", "log2_rows": LOG2_CONSTRAINTS,
+    facts = {"workload": "placeholder_prove", "log2_rows": rows_log,
              "domain_size": run.fri_params.D[0].n, "lambda": 40,
              "setup_s": dict(run.seconds),
              "process_public_phases_s": dict(clock.seconds)}
@@ -180,6 +195,8 @@ def main(argv=None) -> int:
                             "prove")
     which.add_argument("--placeholder", action="store_true",
                        help="profile one Placeholder prove at 2^16 rows")
+    ap.add_argument("--rows-log2", type=int, default=LOG2_CONSTRAINTS,
+                    help="the Placeholder table's rows, log2 (default 16)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -190,7 +207,8 @@ def main(argv=None) -> int:
 
     facts, prove, accept, phases_of = (
         _lpc_setup() if args.lpc else
-        _placeholder_setup() if args.placeholder else _groth16_setup())
+        _placeholder_setup(args.rows_log2) if args.placeholder
+        else _groth16_setup())
     _timed(prove)                                          # warm-up
     proof, wall = _timed(prove)
     phases = phases_of()
@@ -202,6 +220,7 @@ def main(argv=None) -> int:
         1 - device["device_busy_s"] / device["wall_s_profiled"]
     device["idle_share_against_plain_wall"] = \
         1 - device["device_busy_s"] / wall
+    device["poseidon"] = poseidon_device_ms(device)
     result = {"card": card, **facts, "prove_wall_s": wall,
               "phases_s": phases, "device": device,
               "host": _host_profile(prove)}

@@ -155,9 +155,32 @@ def test_mont_mul_broadcasts_like_reference():
 
 
 def test_odd_digit_count_is_refused_by_the_kernels():
+    """An odd digit count has a kernel instance only at 19 digits (the
+    MNT4/MNT6 scalar fields, R = 2^304, 10 words with a half top word);
+    any other odd count is still refused."""
     from crypto3_zk_tpu_torch import kernels as K
+    for fs in (TP.MNT4_FR, TP.MNT6_FR):
+        nw, consts = K.field_consts(fs)
+        assert (fs.nl, nw) == (19, 10)
+        assert [consts[j] for j in range(2 * nw)] == [
+            (v >> (32 * j)) & 0xFFFFFFFF
+            for v in (fs.p, fs.R_mod_p) for j in range(nw)]
+        assert consts[2 * nw] * fs.p % (1 << 32) == (1 << 32) - 1
+        assert fs.R == 1 << 304
+    p = (1 << 270) - 1
+    while not all(pow(a, p - 1, p) == 1 for a in (2, 3, 5, 7)):
+        p -= 2
+    g = next(g for g in range(2, 50) if pow(g, (p - 1) // 2, p) == p - 1)
+    seventeen = TP.FieldSpec("odd_17", p, g, 1)
+    assert seventeen.nl == 17
     with pytest.raises(ValueError):
-        K.field_consts(TP.MNT4_FR)
+        K.field_consts(seventeen)
+    # the fused words of 19 digits: the top word has one digit
+    d = np.arange(19 * 2, dtype=np.int64).reshape(19, 2) % (1 << 16)
+    w = K.fuse_words(d)
+    assert w.shape == (10, 2)
+    np.testing.assert_array_equal(w[9], d[18])
+    np.testing.assert_array_equal(w[0], d[0] | (d[1] << 16))
 
 
 def test_default_device_is_the_card_and_never_the_cpu():

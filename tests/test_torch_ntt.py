@@ -253,8 +253,9 @@ def test_twiddle_words_are_the_plain_table_fused_and_bit_reversed(log_b,
 
 
 def test_kernels_refuse_a_modulus_that_fills_its_top_word():
-    """The carry chains of the CUDA arithmetic keep sums of two residues in
-    NW words, so a modulus without a free top bit is refused."""
+    """The 8- and 12-word instances keep sums of two residues in NW words,
+    so a modulus of 16 or 24 digits without a free top bit is refused; only
+    the 2-word instance (Goldilocks) carries out of its top word."""
     from crypto3_zk_tpu_torch import kernels as K
     p = 2**256 - 2**32 - 977
     g = next(g for g in range(2, 50) if pow(g, (p - 1) // 2, p) == p - 1)
@@ -262,6 +263,9 @@ def test_kernels_refuse_a_modulus_that_fills_its_top_word():
     with pytest.raises(ValueError):
         K.field_consts(full)
     assert K.field_consts(TP.BLS12_381_FR)[0] == 8
+    assert TP.GOLDILOCKS.p.bit_length() == 64
+    nw, consts = K.field_consts(TP.GOLDILOCKS)
+    assert nw == 2 and list(consts)[:2] == [1, 0xFFFFFFFF]
 
 
 def test_four_step_twiddles_match_reference():

@@ -10,6 +10,7 @@ import random
 import types
 
 import numpy as np
+import torch
 import pytest
 
 import circuits as CI
@@ -89,6 +90,25 @@ def _ref_common_from_port(common, desc, rfs=RFS):
 # ---------------------------------------------------------------------------
 # the circuit and its transcript hash
 # ---------------------------------------------------------------------------
+
+def test_port_circuit_1_is_the_reference_fixture():
+    """The port's own `circuits.circuit_1` (which `chip_smoke.py` proves
+    over Goldilocks) is the reference's fixture: the same table for the
+    same seed and the same constraint-system hash."""
+    (cs, asg, desc, pi), (tcs, tasg, tdesc) = _circuit("circuit_1",
+                                                       P.GOLDILOCKS)
+    mcs, masg, mdesc, mpi = TCI.circuit_1(TP.GOLDILOCKS.p,
+                                          random.Random(0xAB))
+    assert vars(masg) == vars(tasg) and vars(mdesc) == vars(tdesc)
+    assert mpi == pi
+    fri = FRI.FRIParams.build(TP.GOLDILOCKS, degree_log=4, lambda_=4)
+    params = TC.PlaceholderParams(TP.GOLDILOCKS)
+    assert TC.constraint_system_with_params_hash(
+        params, mcs, mdesc, fri.transcript_repr(), TP.GOLDILOCKS.generator) \
+        == TC.constraint_system_with_params_hash(
+            params, tcs, tdesc, fri.transcript_repr(),
+            TP.GOLDILOCKS.generator)
+
 
 @pytest.mark.parametrize("name", CIRCUITS)
 def test_constraint_system_hash_equals_the_reference(name):
@@ -364,24 +384,35 @@ def test_placeholder_chain_agrees_across_packages():
 
 
 # ---------------------------------------------------------------------------
-# other fields, on the CPU only
+# other fields
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("field", ["PALLAS_FR", "GOLDILOCKS"])
 def test_other_fields_prove_and_verify(field):
     """circuit_1 over the Pallas scalar field and over Goldilocks (keccak
-    trees): the port's proof verifies in both packages. The card refuses
-    Goldilocks (no kernel instance for 2-word fields), so these run on the
-    CPU only."""
+    trees): the port's proof verifies in both packages. Both fields have
+    kernel instances (Goldilocks the 2-word one, whose p fills its top
+    word); where a card is present the proof is made there too and equals
+    the CPU's, challenge by challenge (`chip_smoke.py` does so with
+    Poseidon trees)."""
     rfs, fs = getattr(P, field), getattr(TP, field)
     (cs, asg, desc, pi), (tcs, tasg, tdesc) = _circuit("circuit_1", rfs)
     fri = FRI.FRIParams.build(fs, degree_log=4, lambda_=4,
                               merkle_hash="keccak_256")
     params = TC.PlaceholderParams(fs)
-    scheme = LPCScheme(fri)
-    pub = TPP.process_public(params, tcs, tasg, tdesc, scheme, device="cpu")
-    priv = TPP.process_private(params, tcs, tasg, tdesc, device="cpu")
-    proof = prove(params, pub, priv, tdesc, tcs, scheme, device="cpu")
+
+    def proof_on(device):
+        scheme = LPCScheme(fri)
+        pub = TPP.process_public(params, tcs, tasg, tdesc, scheme,
+                                 device=device)
+        priv = TPP.process_private(params, tcs, tasg, tdesc, device=device)
+        return pub, prove(params, pub, priv, tdesc, tcs, scheme,
+                          device=device)
+
+    pub, proof = proof_on("cpu")
+    if torch.cuda.is_available():
+        assert CV.placeholder_proof_as_plain(proof_on("cuda")[1]) == \
+            CV.placeholder_proof_as_plain(proof)
     assert verify(params, pub.common_data, proof, tdesc, tcs, LPCScheme(fri),
                   public_input=pi)
     rproof = CV.placeholder_proof_from_fields(
