@@ -31,7 +31,24 @@ points a user calls:
   `process_public` / `process_private`, `prove` (twice, the second is
   reported), `verify` by an independent scheme, one more prove under
   `torch.profiler` for kernel 5's device time by form; then `ntt_hopper`
-  against its plain version at the longest transform the prove ran.
+  against its plain version at the longest transform the prove ran;
+- `ops.msm.msm` at 2^10 bases against the host (alt_bn128 and bls12-381,
+  G1 and G2), and `circuit_1` over KZG v2 and BDFG proved on the card and
+  on the CPU (equal proofs and next challenges);
+- the Placeholder prover over KZG (`commitments/kzg.py`) on the 2^16-row
+  `placeholder_chain` over alt_bn128 Fr (`tools/placeholder_fixture.py::
+  PlaceholderKZGRun`): `KZGParams.setup` of 2^18 + 8 G1 powers on the card,
+  a 2^16-term commitment's MSM timed by window width and the tensor commit
+  against the host-int round trip, `process_public` / `process_private`,
+  two v2 proves (the second reported), `verify` by an independent scheme,
+  a wrong public input and a changed quotient opening rejected, one prove
+  under `torch.profiler` (device busy, idle share); then BDFG's prove and
+  verify on the same table and SRS;
+- the classic R1CS provers: small PGHR13, GM17 and USCS keys and proofs
+  equal card against CPU, then PGHR13 and GM17 at 2^16 constraints (the
+  product chain) and the USCS ppzkSNARK over a TBCS chain of 2^14 gates:
+  `generate`, `prove` twice (the second reported), `verify`, a wrong input
+  rejected.
 
 It fails (non-zero exit, no result line) without a CUDA device, when a kernel
 does not build, launch or agree, when a kernel of a path was never launched
@@ -45,8 +62,9 @@ Output: one line per phase with its seconds; then the times of one whole 2^17
 transform, the transforms past 2^20, the multiply-add rate and kernel 5's
 device ms in each Placeholder prove as a JSON object; then, on a line of its
 own, a JSON object {"kernels": [...]} with every kernel's numbers
-(`launches` is the sum over the whole paths: Groth16 prove, LPC path and
-both Placeholder paths; `launches_<path>` its parts; a row named
+(`launches` is the sum over the whole paths: Groth16 prove, LPC path,
+both Placeholder paths over LPC, the Placeholder-over-KZG path and the
+classic path; `launches_<path>` its parts; a row named
 `kernel[field]` is another field's instance, its launches those of that
 field's run; `int_bound_ms` is the bound with the measured integer rate);
 then the card's name and power limit; then the result line.
@@ -1111,6 +1129,362 @@ def placeholder_path(torch, rows_log: int) -> tuple[dict, dict, int, dict]:
     return counts, per_prove, longest, poseidon
 
 
+# ---------------------------------------------------------------------------
+# phase 7: KZG commitments and the Placeholder prover over KZG
+# ---------------------------------------------------------------------------
+
+KZG_LOG2_ROWS = 16
+KZG_WINDOWS = (4, 5, 6, 8, 10)     # widths timed at a 2^16-term commitment
+KZG_WINDOW_ROUNDS = 15             # rounds of the sweep, each timing every width
+
+
+def msm_against_host(torch, log_n: int = 10) -> None:
+    """`ops.msm.msm` on the card at 2^10 bases over alt_bn128 and
+    bls12-381, G1 and G2. The bases are small multiples j * g of the
+    generator, so msm_host's answer is also (sum s_i j_i) * g: G1 is held
+    against `msm_host` itself, G2 (whose host scalar multiplications would
+    take minutes) against that one multiplication."""
+    from crypto3_zk_tpu_torch.fields import curves as CV
+    from crypto3_zk_tpu_torch.ops.msm import msm, msm_host
+
+    n = 1 << log_n
+    for curve in (CV.ALT_BN128, CV.BLS12_381):
+        for group in ("g1", "g2"):
+            add = CV.g1_add if group == "g1" else CV.g2_add
+            mul = CV.g1_mul if group == "g1" else CV.g2_mul
+            gen = curve.g1 if group == "g1" else curve.g2
+            rng = random.Random(n + len(group))
+            table, acc = [], None
+            for _ in range(64):
+                acc = add(curve, acc, gen)
+                table.append(acc)
+            sel = [rng.randrange(64) for _ in range(n)]
+            scalars = [rng.randrange(curve.fr.p) for _ in range(n)]
+            scalars[5] = 0
+            pts = [table[j] for j in sel]
+            t0 = time.perf_counter()
+            got = msm(curve, pts, scalars, group=group, device="cuda")
+            dt = time.perf_counter() - t0
+            if group == "g1":
+                t1 = time.perf_counter()
+                want = msm_host(curve, pts, scalars)
+                oracle = f"msm_host ({time.perf_counter() - t1:.2f} s)"
+            else:
+                want = mul(curve, gen, sum(s * (j + 1) for j, s in
+                                           zip(sel, scalars)) % curve.fr.p)
+                oracle = "(sum s_i j_i) * g2"
+            if got != want:
+                raise AssertionError(f"msm 2^{log_n} {group} on {curve.name} "
+                                     f"disagrees with its oracle")
+            log(f"msm 2^{log_n} {group} on {curve.name}: {dt:.2f} s, equal "
+                f"to {oracle}")
+
+
+def small_agreement_placeholder_kzg(torch) -> None:
+    """`circuit_1` over alt_bn128 Fr proved over KZG v2 and BDFG on the card
+    and on the CPU: the proofs and the next challenges are equal, and the
+    card's proof verifies."""
+    from crypto3_zk_tpu_torch.arithmetization.circuits import circuit_1
+    from crypto3_zk_tpu_torch.commitments import kzg as KZG
+    from crypto3_zk_tpu_torch.convert import placeholder_proof_as_plain
+    from crypto3_zk_tpu_torch.fields import curves as CV
+    from crypto3_zk_tpu_torch.models.placeholder import common as PCM
+    from crypto3_zk_tpu_torch.models.placeholder import preprocessor as PP
+    from crypto3_zk_tpu_torch.models.placeholder.prover import prove
+    from crypto3_zk_tpu_torch.models.placeholder.verifier import verify
+    from crypto3_zk_tpu_torch.transcript.poseidon_transcript import \
+        make_transcript
+
+    curve = CV.ALT_BN128
+    fs = curve.fr
+    for cls in (KZG.KZGSchemeV2, KZG.KZGSchemeBDFG):
+        got = []
+        for device in ("cuda", "cpu"):
+            rng = random.Random(0xCD)
+            cs, asg, desc, pub_in = circuit_1(fs.p, rng)
+            params = PCM.PlaceholderParams(fs, transcript_hash="keccak_256")
+            kparams = KZG.KZGParams.setup(curve, 4 * desc.rows_amount + 8,
+                                          tau=rng.randrange(2, fs.p), d2=8,
+                                          device=device)
+            scheme = cls(kparams, device)
+            pub = PP.process_public(params, cs, asg, desc, scheme,
+                                    device=device)
+            priv = PP.process_private(params, cs, asg, desc, device=device)
+            tr = make_transcript("keccak_256", fs, b"")
+            proof = prove(params, pub, priv, desc, cs, scheme.fork(), None,
+                          tr, device)
+            got.append((kparams.commitment_key,
+                        placeholder_proof_as_plain(proof), tr.challenge(fs)))
+            tr = make_transcript("keccak_256", fs, b"")
+            if not verify(params, pub.common_data, proof, desc, cs,
+                          cls(kparams), public_input=pub_in, transcript=tr) \
+                    or tr.challenge(fs) != got[-1][2]:
+                raise AssertionError(f"the {cls.__name__} circuit_1 proof "
+                                     f"made on {device} was rejected")
+        if got[0] != got[1]:
+            raise AssertionError(f"card and CPU {cls.__name__} proofs differ")
+
+
+def kzg_commit_checks(torch, run) -> dict:
+    """At the path's commitment size (a 2^16-coefficient polynomial): the
+    MSM's time by window width (`tools/msm_windows.py::window_sweep`,
+    `KZG_WINDOW_ROUNDS` rounds), and one commitment by the tensor path
+    against the reference's host-int round trip, on a `PhaseClock`."""
+    from crypto3_zk_tpu_torch.commitments import kzg as KZG
+    from crypto3_zk_tpu_torch.commitments.fri import PhaseClock
+    from crypto3_zk_tpu_torch.ops import limbs as L
+    from crypto3_zk_tpu_torch.tools.msm_windows import quartiles, window_sweep
+
+    n = run.desc.rows_amount
+    poly = run.private.witnesses[0].coefficients()
+    if poly.n != n:
+        raise AssertionError("a witness column's coefficients are not n long")
+    sweep = window_sweep(run.curve, run.kzg_params.commitment_key[:n],
+                         L.from_mont(run.fs, poly.c), KZG_WINDOWS,
+                         KZG_WINDOW_ROUNDS)
+    q = {c: quartiles(v) for c, v in sweep["times_ms"].items()}
+    out = {"window_ms": {c: v[1] for c, v in q.items()},
+           "window_q1_q3_ms": {c: (v[0], v[2]) for c, v in q.items()}}
+    log(f"kzg commit of 2^16 terms by window width, {KZG_WINDOW_ROUNDS} "
+        f"rounds (ms, median [quartiles]): "
+        + ", ".join(f"{c}: {v[1]:.1f} [{v[0]:.1f}, {v[2]:.1f}]"
+                    for c, v in q.items())
+        + f"; fastest {min(out['window_ms'], key=out['window_ms'].get)}, "
+        f"chosen COMMIT_WINDOW_BITS = {KZG.COMMIT_WINDOW_BITS}")
+    KZG.commit_poly(run.kzg_params, poly)          # warm the encoded key
+    clock = PhaseClock("cuda")
+    a = KZG.commit_poly(run.kzg_params, poly)
+    clock.mark("commit_tensor")
+    b = KZG.commit_one(run.kzg_params, poly.to_ints(), "cuda")
+    clock.mark("commit_host_ints")
+    if not a == b == sweep["point"]:
+        raise AssertionError("the tensor and host-int commitments differ")
+    out.update(clock.seconds)
+    log(f"kzg commitment of 2^16 terms: tensor path "
+        f"{clock.seconds['commit_tensor']:.3f} s, host int round trip "
+        f"{clock.seconds['commit_host_ints']:.3f} s")
+    return out
+
+
+def placeholder_kzg_path(torch) -> tuple[dict, dict, dict]:
+    """Placeholder over KZG at 2^16 rows (alt_bn128 Fr, keccak transcript,
+    `KZGSchemeV2`), from an SRS made on the card; then `KZGSchemeBDFG` on
+    the same table and SRS. Returns (launch counts of the whole path,
+    launch counts of the second v2 prove, numbers for the report)."""
+    import copy
+    from crypto3_zk_tpu_torch.commitments.fri import PhaseClock
+    from crypto3_zk_tpu_torch.models.placeholder import common as PC
+    from crypto3_zk_tpu_torch.tools import profile_prove as PRF
+    from crypto3_zk_tpu_torch.tools.placeholder_fixture import \
+        PlaceholderKZGRun
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    run = PlaceholderKZGRun(KZG_LOG2_ROWS, "cuda", "v2")
+    torch.cuda.synchronize()
+    desc = run.desc
+    report["setup_s"] = run.seconds["kzg_setup"]
+    log(f"placeholder over kzg: placeholder_chain, {desc.rows_amount} rows "
+        f"over {run.fs.name}, SRS of {len(run.kzg_params.commitment_key)} "
+        f"G1 powers made on the card in {run.seconds['kzg_setup']:.2f} s, "
+        f"{len(run.kzg_params.verification_key)} in G2")
+    clock = PhaseClock("cuda")
+    run.preprocess(clock)
+    report["process_public_s"] = run.seconds["process_public"]
+    report["process_public"] = dict(clock.seconds)
+    log("placeholder-kzg process_public: "
+        f"{run.seconds['process_public']:.3f} s ["
+        + ", ".join(f"{k} {v:.3f}" for k, v in clock.seconds.items())
+        + f"], process_private {run.seconds['process_private']:.3f} s")
+    for attempt in ("first", "second"):
+        before = launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        clock = PhaseClock("cuda")
+        t0 = time.perf_counter()
+        proof, challenge = run.prove(clock)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"placeholder-kzg v2 prove ({attempt}): {dt:.3f} s ["
+            + ", ".join(f"{k} {v:.3f}" for k, v in clock.seconds.items())
+            + f"] peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    report["prove_s"] = dt
+    report["prove"] = dict(clock.seconds)
+    report["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    per_prove = {k: v - before[k] for k, v in launch_counts().items()}
+    log(f"kernel launches in the second prove: {per_prove}")
+    idle = [k for k in GROTH16_KERNELS if per_prove[k] <= 0]
+    if idle:
+        raise AssertionError(f"the KZG prove never launched {idle}")
+
+    t0 = time.perf_counter()
+    ok, verifier_challenge = run.verify(proof)
+    report["verify_s"] = time.perf_counter() - t0
+    log(f"placeholder-kzg v2 verify: {report['verify_s']:.2f} s -> {ok}")
+    if not ok:
+        raise AssertionError("the KZG v2 verifier rejected the proof")
+    if challenge != verifier_challenge:
+        raise AssertionError("prover and verifier transcripts differ")
+    log("placeholder-kzg transcripts: same next challenge")
+    wrong = [[(run.public_input[0][0] + 1) % run.fs.p]]
+    if run.verify(proof, wrong)[0]:
+        raise AssertionError("the verifier accepted a wrong public input")
+    log("placeholder-kzg verify with public input + 1: rejected")
+    bad = copy.deepcopy(proof)
+    z = bad.eval_proof.eval_proof.z.z
+    z[PC.QUOTIENT_BATCH][0][0] = (z[PC.QUOTIENT_BATCH][0][0] + 1) % run.fs.p
+    if run.verify(bad)[0]:
+        raise AssertionError("the verifier accepted a tampered quotient "
+                             "opening")
+    log("placeholder-kzg verify with a quotient opening changed: rejected")
+    device = PRF._device_profile(lambda: run.prove()[0])
+    report["device_busy_s"] = device["device_busy_s"]
+    report["wall_s_profiled"] = device["wall_s_profiled"]
+    report["idle_share"] = 1 - device["device_busy_s"] \
+        / device["wall_s_profiled"]
+    log(f"placeholder-kzg prove under torch.profiler: device busy "
+        f"{device['device_busy_s']:.4f} s of "
+        f"{device['wall_s_profiled']:.3f} s, idle share "
+        f"{report['idle_share']:.3f}; top kernels "
+        f"{[(k['name'][:40], k['calls'], round(k['device_ms'], 2)) for k in device['top_kernels'][:6]]}")
+
+    bdfg = PlaceholderKZGRun(KZG_LOG2_ROWS, "cuda", "bdfg",
+                             kzg_params=run.kzg_params)
+    bdfg.preprocess()
+    clock = PhaseClock("cuda")
+    t0 = time.perf_counter()
+    proof, challenge = bdfg.prove(clock)
+    report["bdfg_prove_s"] = time.perf_counter() - t0
+    report["bdfg_prove"] = dict(clock.seconds)
+    t0 = time.perf_counter()
+    ok, verifier_challenge = bdfg.verify(proof)
+    report["bdfg_verify_s"] = time.perf_counter() - t0
+    log(f"placeholder-kzg bdfg: process_public "
+        f"{bdfg.seconds['process_public']:.3f} s, prove "
+        f"{report['bdfg_prove_s']:.3f} s ["
+        + ", ".join(f"{k} {v:.3f}" for k, v in clock.seconds.items())
+        + f"], verify {report['bdfg_verify_s']:.2f} s -> {ok}")
+    if not ok or challenge != verifier_challenge:
+        raise AssertionError("the BDFG proof was rejected or the transcripts "
+                             "differ")
+    counts = launch_counts()
+    log(f"kernel launches on the Placeholder-over-KZG path (setup, v2 "
+        f"preprocess, three proves, verifies, bdfg preprocess, prove, "
+        f"verify): {counts}")
+    idle = [k for k in GROTH16_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"the KZG path never launched {idle}")
+    report["commit"] = kzg_commit_checks(torch, run)   # after the count
+    return counts, per_prove, report
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the classic R1CS provers (PGHR13, GM17, USCS over TBCS)
+# ---------------------------------------------------------------------------
+
+CLASSIC_LOG2_CONSTRAINTS = 16    # PGHR13 and GM17 on the product chain
+TBCS_LOG2_GATES = 14             # the USCS ppzkSNARK over a TBCS chain
+
+
+def _classic_systems(log2_size: int, tbcs_log2_gates: int):
+    """(name, generate(rng, device), prove(kp, rng, device), verify(kp,
+    primary, proof), primary, wrong primary) for each classic system."""
+    from crypto3_zk_tpu_torch.arithmetization.circuits import (product_chain,
+                                                               tbcs_chain)
+    from crypto3_zk_tpu_torch.fields import curves as CV
+    from crypto3_zk_tpu_torch.models import circuit_snarks as CS
+    from crypto3_zk_tpu_torch.models import gm17 as GM
+    from crypto3_zk_tpu_torch.models import pghr13 as PG
+
+    curve = CV.ALT_BN128
+    p = curve.fr.p
+    out = []
+    for name, mod in (("pghr13", PG), ("gm17", GM)):
+        cs, primary, aux = product_chain(p, 1 << log2_size)
+        out.append((name,
+                    lambda rng, dev, mod=mod, cs=cs: mod.generate(
+                        curve, cs, rng, device=dev),
+                    lambda kp, rng, dev, mod=mod, x=primary, w=aux:
+                        mod.prove(kp.pk, x, w, rng, device=dev),
+                    lambda kp, x, pr, mod=mod: mod.verify(kp.vk, x, pr),
+                    primary, [primary[0] + 1]))
+    circuit, primary, aux = tbcs_chain(1 << tbcs_log2_gates,
+                                       random.Random(14))
+    out.append(("uscs_tbcs",
+                lambda rng, dev: CS.tbcs_generate(curve, circuit, rng,
+                                                  device=dev)[0],
+                lambda kp, rng, dev: CS.tbcs_prove(kp, circuit, primary, aux,
+                                                   rng, device=dev),
+                CS.tbcs_verify, primary, [0, 1]))
+    return out
+
+
+def small_agreement_classic(torch) -> None:
+    """A 2^5-constraint proof of PGHR13, GM17 and the USCS ppzkSNARK (a
+    TBCS chain of 16 gates) on the card and on the CPU: equal keys and
+    proofs (the witness maps' transforms and the keys' longer query
+    vectors run the device code; the MSMs of so few bases stay on the
+    host, as a user's would), and the card's proofs verify."""
+    for name, gen, prove, verify, primary, _ in _classic_systems(5, 4):
+        got = []
+        for device in ("cuda", "cpu"):
+            rng = random.Random(5)
+            kp = gen(rng, device)
+            got.append((kp, prove(kp, rng, device)))
+        if got[0] != got[1]:
+            raise AssertionError(f"card and CPU {name} keys or proofs "
+                                 f"differ")
+        if not verify(got[0][0], primary, got[0][1]):
+            raise AssertionError(f"the small {name} proof was rejected")
+
+
+def classic_path(torch) -> tuple[dict, dict]:
+    """PGHR13 and GM17 at 2^16 constraints (the product chain, dense A and
+    B), the USCS ppzkSNARK over a TBCS chain of 2^14 gates: generate, prove
+    twice (the second reported), verify, a wrong input rejected. Returns
+    (launch counts of the whole path, seconds by system)."""
+    reset_launch_counts()
+    report = {}
+    for name, gen, prove, verify, primary, wrong in _classic_systems(
+            CLASSIC_LOG2_CONSTRAINTS, TBCS_LOG2_GATES):
+        rng = random.Random(7)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        kp = gen(rng, "cuda")
+        torch.cuda.synchronize()
+        keygen = time.perf_counter() - t0
+        proves = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            proof = prove(kp, rng, "cuda")
+            torch.cuda.synchronize()
+            proves.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ok = verify(kp, primary, proof)
+        verify_s = time.perf_counter() - t0
+        report[name] = {"keygen_s": keygen, "prove_s": proves,
+                        "verify_s": verify_s, "peak_mib":
+                        torch.cuda.max_memory_allocated() / 2**20}
+        log(f"{name}: keygen {keygen:.2f} s, prove {proves[0]:.2f} s then "
+            f"{proves[1]:.2f} s, verify {verify_s:.2f} s -> {ok}, peak "
+            f"{report[name]['peak_mib']:.0f} MiB")
+        if not ok:
+            raise AssertionError(f"the {name} verifier rejected the proof")
+        if verify(kp, wrong, proof):
+            raise AssertionError(f"the {name} verifier accepted a wrong "
+                                 f"input")
+        log(f"{name} verify with a wrong input: rejected")
+        del kp
+    counts = launch_counts()
+    log(f"kernel launches on the classic path (three keygens, six proves): "
+        f"{counts}")
+    idle = [k for k in GROTH16_KERNELS if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"the classic path never launched {idle}")
+    return counts, report
+
+
 def goldilocks_agreement(torch) -> dict:
     """`circuit_1` over Goldilocks with Poseidon trees (the reference's
     Goldilocks case): the card's proof equals the CPU plain path's, every
@@ -1322,7 +1696,26 @@ def main(argv=None) -> int:
              extra["poseidon_device_ms"][f"2^{rows_log}"]) = \
                 placeholder_path(torch, rows_log)
             check_longest_transform(torch, longest)
-        whole = [k for k in paths if k in ("groth16_prove", "lpc_path")
+        t0 = time.perf_counter()
+        msm_against_host(torch)
+        log(f"msm against the host: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        small_agreement_placeholder_kzg(torch)
+        log(f"small Placeholder-over-KZG proofs (v2, bdfg), card against "
+            f"CPU: equal, verified: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        (paths["placeholder_kzg_path"], paths["placeholder_kzg_prove"],
+         extra["placeholder_kzg"]) = placeholder_kzg_path(torch)
+        log(f"placeholder over kzg: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        small_agreement_classic(torch)
+        log(f"small PGHR13, GM17 and USCS proofs, card against CPU: equal, "
+            f"verified: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        paths["classic_path"], extra["classic"] = classic_path(torch)
+        log(f"classic provers: {time.perf_counter() - t0:.2f} s")
+        whole = [k for k in paths
+                 if k in ("groth16_prove", "lpc_path", "classic_path")
                  or k.endswith("_path") and k.startswith("placeholder")]
         for row in rows:
             name, _, field = row["name"].partition("[")

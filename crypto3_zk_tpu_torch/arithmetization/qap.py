@@ -8,6 +8,9 @@
   reference's algorithm with `multiply_by_coset` folded into the coset
   transforms.
 
+- instance_map_lagrange (`r1cs_to_qap.hpp::instance_map`): the sparse
+  Lagrange-basis QAP a powers-of-tau consumer needs.
+
 Counterpart of `arithmetization/qap.py` of the JAX package; `witness_map`
 takes the device explicitly (default: the card).
 """
@@ -64,6 +67,41 @@ def instance_map_with_evaluation(fs: FieldSpec, cs: R1CSConstraintSystem,
     Ht = [pow(t, i, p) for i in range(domain.n + 1)]
     return QAPInstanceEvaluation(domain, nv, domain.n, cs.num_inputs, t,
                                  At, Bt, Ct, Ht, Zt)
+
+
+@dataclasses.dataclass
+class QAPInstanceLagrange:
+    """Sparse Lagrange-basis QAP (`r1cs_to_qap.hpp::instance_map`): per
+    variable, the list of (lagrange_index, coefficient) pairs; the CRS is
+    assembled from [L_j(tau)]*G without knowing tau
+    (`crs_operations.hpp:23-113`)."""
+    domain: Domain
+    num_variables: int
+    degree: int
+    num_inputs: int
+    A: list[list[tuple[int, int]]]
+    B: list[list[tuple[int, int]]]
+    C: list[list[tuple[int, int]]]
+
+
+def instance_map_lagrange(fs: FieldSpec,
+                          cs: R1CSConstraintSystem) -> QAPInstanceLagrange:
+    p = fs.p
+    domain = qap_domain(fs, cs)
+    nv = cs.num_variables
+    A = [[] for _ in range(nv + 1)]
+    B = [[] for _ in range(nv + 1)]
+    C = [[] for _ in range(nv + 1)]
+    for i in range(cs.num_inputs + 1):
+        A[i].append((cs.num_constraints + i, 1))
+    for i, cst in enumerate(cs.constraints):
+        for idx, coeff in cst.a.terms:
+            A[idx].append((i, coeff % p))
+        for idx, coeff in cst.b.terms:
+            B[idx].append((i, coeff % p))
+        for idx, coeff in cst.c.terms:
+            C[idx].append((i, coeff % p))
+    return QAPInstanceLagrange(domain, nv, domain.n, cs.num_inputs, A, B, C)
 
 
 @dataclasses.dataclass

@@ -25,6 +25,7 @@ from .arithmetization import plonk as PK
 from .arithmetization import r1cs as R
 from .commitments import batched as B
 from .commitments import fri as FRI
+from .commitments import kzg as KZG
 from .commitments import lpc as LPC
 from .fields import curves as CV
 from .fields import mnt as MNT
@@ -234,36 +235,84 @@ def plonk_from_reference(cs, assignment, desc):
     return out_cs, out_assignment, out_desc
 
 
+def kzg_params_from_reference(fields: dict) -> KZG.KZGParams:
+    """The port's `KZGParams` from the reference's fields (`curve` as an
+    object with a `name`, or the name; the G1 and G2 powers as host affine
+    points)."""
+    return KZG.KZGParams(curve_by_name(_name_of(fields["curve"])),
+                         list(fields["commitment_key"]),
+                         list(fields["verification_key"]))
+
+
+def _z_fields(z) -> dict:
+    return {int(k): [[int(x) for x in row] for row in rows]
+            for k, rows in z.z.items()}
+
+
+def _z_from_fields(z_fields: dict, batched=B):
+    z = batched.EvalStorage()
+    z.z = {k: [list(row) for row in rows] for k, rows in z_fields.items()}
+    return z
+
+
+def kzg_proof_fields(proof) -> dict:
+    """Either package's `KZGv2Proof` (`{"z", "pi_1", "pi_2"}`) or
+    `KZGBDFGProof` (`{"z", "pi"}`) as plain values; points are host affine
+    tuples, None for infinity."""
+    out = {"z": _z_fields(proof.z)}
+    for name in ("pi_1", "pi_2", "pi"):
+        if hasattr(proof, name):
+            out[name] = getattr(proof, name)
+    return out
+
+
+def kzg_proof_from_fields(fields: dict, kzg=KZG, batched=B):
+    """A `KZGv2Proof` or `KZGBDFGProof` of the module `kzg` (this port's by
+    default; a test passes the reference's) from `kzg_proof_fields`."""
+    z = _z_from_fields(fields["z"], batched)
+    if "pi" in fields:
+        return kzg.KZGBDFGProof(z=z, pi=fields["pi"])
+    return kzg.KZGv2Proof(z=z, pi_1=fields["pi_1"], pi_2=fields["pi_2"])
+
+
 def placeholder_proof_fields(proof) -> dict:
-    """Either package's `PlaceholderProof` over LPC (duck-typed) as plain
-    dicts and lists: `{"commitments": {batch: root}, "challenge",
-    "z": {batch: [[value per point] per polynomial]}, "fri_proof":
-    fri_proof_fields(...)}`."""
+    """Either package's `PlaceholderProof` over LPC or KZG (duck-typed) as
+    plain dicts and lists: `{"commitments": {batch: root or blob},
+    "challenge", "z": {batch: [[value per point] per polynomial]}}` and
+    `"fri_proof": fri_proof_fields(...)` over LPC, or the openings of
+    `kzg_proof_fields` (`"pi_1"`, `"pi_2"` or `"pi"`) over KZG."""
     ev = proof.eval_proof
-    return {
+    out = {
         "commitments": {int(k): v for k, v in proof.commitments.items()},
         "challenge": int(ev.challenge),
-        "z": {int(k): [[int(x) for x in row] for row in rows]
-              for k, rows in ev.eval_proof.z.z.items()},
-        "fri_proof": fri_proof_fields(ev.eval_proof.fri_proof),
+        "z": _z_fields(ev.eval_proof.z),
     }
+    if hasattr(ev.eval_proof, "fri_proof"):
+        out["fri_proof"] = fri_proof_fields(ev.eval_proof.fri_proof)
+    else:
+        out.update(kzg_proof_fields(ev.eval_proof))
+    return out
 
 
-PORT_MODULES = types.SimpleNamespace(common=PC, lpc=LPC, batched=B, fri=FRI)
+PORT_MODULES = types.SimpleNamespace(common=PC, lpc=LPC, batched=B, fri=FRI,
+                                     kzg=KZG)
 
 
 def placeholder_proof_from_fields(fields: dict, mod=PORT_MODULES):
     """A `PlaceholderProof` from `placeholder_proof_fields`, built from the
-    modules in `mod` (a namespace with `common`, `lpc`, `batched` and `fri`:
-    this port's by default; a test passes the reference's)."""
-    z = mod.batched.EvalStorage()
-    z.z = {k: [list(row) for row in rows] for k, rows in fields["z"].items()}
-    lpc_proof = mod.lpc.LPCProof(
-        z=z, fri_proof=fri_proof_from_fields(fields["fri_proof"], mod.fri))
+    modules in `mod` (a namespace with `common`, `batched` and `lpc` and
+    `fri` or `kzg`: this port's by default; a test passes the
+    reference's)."""
+    if "fri_proof" in fields:
+        eval_proof = mod.lpc.LPCProof(
+            z=_z_from_fields(fields["z"], mod.batched),
+            fri_proof=fri_proof_from_fields(fields["fri_proof"], mod.fri))
+    else:
+        eval_proof = kzg_proof_from_fields(fields, mod.kzg, mod.batched)
     return mod.common.PlaceholderProof(
         commitments=dict(fields["commitments"]),
         eval_proof=mod.common.EvalProof(challenge=fields["challenge"],
-                                        eval_proof=lpc_proof))
+                                        eval_proof=eval_proof))
 
 
 def placeholder_proof_as_plain(proof):

@@ -126,28 +126,132 @@ def g1_is_on_curve(c: CurveSpec, pt) -> bool:
     return (y * y - x * x * x - c.b) % p == 0
 
 
+def _jac_double_a0(p: int, X: int, Y: int, Z: int):
+    """2 * (X : Y : Z) in Jacobian coordinates on a = 0 curves
+    (dbl-2009-l); Z = 0 stays infinity."""
+    A = X * X % p
+    B = Y * Y % p
+    C = B * B % p
+    D = 2 * ((X + B) * (X + B) - A - C) % p
+    E = 3 * A % p
+    X3 = (E * E - 2 * D) % p
+    return X3, (E * (D - X3) - 8 * C) % p, 2 * Y * Z % p
+
+
+def _ladder_g1(p: int, a, k: int):
+    """k * a on a short Weierstrass curve with a = 0 over F_p, k >= 0 not
+    reduced: left-to-right double-and-add with a Jacobian accumulator and
+    the affine point as the addend (mixed addition), one inversion at the
+    end. The same point as the affine ladder, without an inversion a
+    step."""
+    if a is None or k == 0:
+        return None
+    x, y = a
+    X, Y, Z = x, y, 1
+    for bit in bin(k)[3:]:
+        X, Y, Z = _jac_double_a0(p, X, Y, Z)
+        if bit != "1":
+            continue
+        if Z == 0:
+            X, Y, Z = x, y, 1
+            continue
+        Z1Z1 = Z * Z % p
+        H = (x * Z1Z1 - X) % p
+        r = (y * Z * Z1Z1 - Y) % p
+        if H == 0:
+            if r == 0:                       # the accumulator is a itself
+                X, Y, Z = _jac_double_a0(p, X, Y, Z)
+            else:                            # a + (-a)
+                X, Y, Z = 1, 1, 0
+            continue
+        HH = H * H % p
+        HHH = H * HH % p
+        V = X * HH % p
+        X3 = (r * r - HHH - 2 * V) % p
+        X, Y, Z = X3, (r * (V - X3) - Y * HHH) % p, Z * H % p
+    if Z == 0:
+        return None
+    zi = pow(Z, -1, p)
+    zi2 = zi * zi % p
+    return (X * zi2 % p, Y * zi2 * zi % p)
+
+
 def _mul_raw_g1(c: CurveSpec, a, k: int):
     """Scalar mul WITHOUT reducing k mod r (g1_mul reduces, which would make
     the r*P subgroup test vacuous)."""
-    out = None
-    add = a
-    while k:
-        if k & 1:
-            out = g1_add(c, out, add)
-        add = g1_add(c, add, add)
-        k >>= 1
-    return out
+    if _is_mnt(c):
+        out = None
+        add = a
+        while k:
+            if k & 1:
+                out = g1_add(c, out, add)
+            add = g1_add(c, add, add)
+            k >>= 1
+        return out
+    return _ladder_g1(c.fq.p, a, k)
+
+
+def _ladder_g2(p: int, a, k: int):
+    """`_ladder_g1` over Fq2 (the a = 0 twist; neither formula reads b)."""
+    if a is None or k == 0:
+        return None
+    add, sub, mul, sqr = T.fq2_add, T.fq2_sub, T.fq2_mul, T.fq2_sqr
+    zero = T.FQ2_ZERO
+
+    def double(X, Y, Z):
+        A = sqr(p, X)
+        B = sqr(p, Y)
+        C = sqr(p, B)
+        XB = add(p, X, B)
+        D = T.fq2_scalar(p, sub(p, sub(p, sqr(p, XB), A), C), 2)
+        E = T.fq2_scalar(p, A, 3)
+        X3 = sub(p, sqr(p, E), T.fq2_scalar(p, D, 2))
+        Y3 = sub(p, mul(p, E, sub(p, D, X3)), T.fq2_scalar(p, C, 8))
+        return X3, Y3, T.fq2_scalar(p, mul(p, Y, Z), 2)
+
+    x, y = a
+    one = (1, 0)
+    X, Y, Z = x, y, one
+    for bit in bin(k)[3:]:
+        X, Y, Z = double(X, Y, Z)
+        if bit != "1":
+            continue
+        if Z == zero:
+            X, Y, Z = x, y, one
+            continue
+        Z1Z1 = sqr(p, Z)
+        H = sub(p, mul(p, x, Z1Z1), X)
+        r = sub(p, mul(p, y, mul(p, Z, Z1Z1)), Y)
+        if H == zero:
+            if r == zero:
+                X, Y, Z = double(X, Y, Z)
+            else:
+                X, Y, Z = one, one, zero
+            continue
+        HH = sqr(p, H)
+        HHH = mul(p, H, HH)
+        V = mul(p, X, HH)
+        X3 = sub(p, sub(p, sqr(p, r), HHH), T.fq2_scalar(p, V, 2))
+        X, Y, Z = X3, sub(p, mul(p, r, sub(p, V, X3)), mul(p, Y, HHH)), \
+            mul(p, Z, H)
+    if Z == zero:
+        return None
+    zi = T.fq2_inv(p, Z)
+    zi2 = sqr(p, zi)
+    return (mul(p, X, zi2), mul(p, Y, mul(p, zi2, zi)))
 
 
 def _mul_raw_g2(c: CurveSpec, a, k: int):
-    out = None
-    add = a
-    while k:
-        if k & 1:
-            out = g2_add(c, out, add)
-        add = g2_add(c, add, add)
-        k >>= 1
-    return out
+    if _is_mnt(c):
+        out = None
+        add = a
+        while k:
+            if k & 1:
+                out = g2_add(c, out, add)
+            add = g2_add(c, add, add)
+            k >>= 1
+        return out
+    return _ladder_g2(c.fq.p, a, k)
 
 
 def g1_on_curve(c, pt) -> bool:
@@ -283,15 +387,7 @@ def g1_mul(c: CurveSpec, a, k: int):
     if _is_mnt(c):
         from . import mnt as _m
         return _m.g1_mul(c, a, k)
-    k %= c.fr.p
-    out = None
-    add = a
-    while k:
-        if k & 1:
-            out = g1_add(c, out, add)
-        add = g1_add(c, add, add)
-        k >>= 1
-    return out
+    return _ladder_g1(c.fq.p, a, k % c.fr.p)
 
 
 # ---------------------------------------------------------------------------
@@ -354,15 +450,7 @@ def g2_mul(c: CurveSpec, a, k: int):
     if _is_mnt(c):
         from . import mnt as _m
         return _m.g2_mul(c, a, k)
-    k %= c.fr.p
-    out = None
-    add = a
-    while k:
-        if k & 1:
-            out = g2_add(c, out, add)
-        add = g2_add(c, add, add)
-        k >>= 1
-    return out
+    return _ladder_g2(c.fq.p, a, k % c.fr.p)
 
 
 # ---------------------------------------------------------------------------

@@ -121,22 +121,11 @@ def generate(curve: CV.CurveSpec, cs: R1CSConstraintSystem,
     def e2(k):
         return CV.g2_mul(curve, g2, k)
 
-    from ...fields import mnt as MNT
-    is_mnt = isinstance(curve, MNT.MNTCurve)
-
     def batch1(ks):
-        if not is_mnt and len(ks) >= _FIXED_BASE_DEVICE_MIN:
-            return fixed_base_exp_batch(curve, g1, ks, group="g1",
-                                        device=device)
-        return [e1(k) for k in ks]
+        return generator_batch(curve, ks, "g1", device)
 
     def batch2(ks):
-        # MNT G2 lives in E(F_{p^k}) tuples: host path (the device Fq2Ops
-        # layout only models quadratic towers)
-        if not is_mnt and len(ks) >= _FIXED_BASE_DEVICE_MIN:
-            return fixed_base_exp_batch(curve, g2, ks, group="g2",
-                                        device=device)
-        return [e2(k) for k in ks]
+        return generator_batch(curve, ks, "g2", device)
 
     A_query = batch1(At)
     B_query_g1 = batch1(Bt)
@@ -156,6 +145,33 @@ def generate(curve: CV.CurveSpec, cs: R1CSConstraintSystem,
                          [e1(v) for v in gamma_ABC],
                          alpha_g1=alpha_g1, beta_g2=beta_g2)
     return Keypair(pk, vk)
+
+
+def generator_batch(curve, ks: list[int], group: str, device) -> list:
+    """[k * g for k in ks] for the group's generator g: the fixed-base batch
+    on `device` from `_FIXED_BASE_DEVICE_MIN` scalars on, host scalar
+    multiplications below it and on MNT curves (whose G2 lives in
+    E(F_{p^k}) tuples the device's Fq2 layout does not model, and whose
+    a != 0 the device formulas refuse)."""
+    from ...fields import mnt as MNT
+    if not isinstance(curve, MNT.MNTCurve) \
+            and len(ks) >= _FIXED_BASE_DEVICE_MIN:
+        return fixed_base_exp_batch(curve, curve.g1 if group == "g1"
+                                    else curve.g2, ks, group=group,
+                                    device=device)
+    mul = CV.g1_mul if group == "g1" else CV.g2_mul
+    gen = curve.g1 if group == "g1" else curve.g2
+    return [mul(curve, gen, k) for k in ks]
+
+
+def bases_cache(pk, device) -> dict:
+    """The proving key's device-resident MSM bases (`MSMBases` by query
+    name), kept on the key for the device they were encoded on."""
+    cache = getattr(pk, "_msm_bases", None)
+    if cache is None or cache.get("device") != device:
+        cache = {"device": device}
+        object.__setattr__(pk, "_msm_bases", cache)
+    return cache
 
 
 def _msm_skip_inf(curve, bases, scalars, group="g1", use_device=True,
@@ -208,10 +224,7 @@ def prove(pk: ProvingKey, primary: list[int], aux: list[int],
     r, s = zk_rs if zk_rs is not None else (rng.randrange(p), rng.randrange(p))
     assignment = [1] + qap_wit.coefficients_for_ABCs
 
-    cache = getattr(pk, "_msm_bases", None)
-    if cache is None or cache.get("device") != device:
-        cache = {"device": device}
-        object.__setattr__(pk, "_msm_bases", cache)
+    cache = bases_cache(pk, device)
 
     def run(name, bases, scalars, group="g1"):
         t = time.perf_counter()

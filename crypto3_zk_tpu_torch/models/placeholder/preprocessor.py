@@ -168,7 +168,7 @@ class CommonData:
     lookup_parts: int
     permuted_columns: list[int]          # global indices
     max_quotient_chunks: int
-    commitment_scheme_data: dict
+    commitment_scheme_data: object       # LPC: {batch: eta values}; KZG: True
     basic_domain: Domain
 
     def lagrange_0_at(self, y: int) -> int:

@@ -124,13 +124,13 @@ def prove(params: C.PlaceholderParams,
           clock: PhaseClock | None = None,
           transcript=None, device=None) -> C.PlaceholderProof:
     """A proof, made on `device` (default: the card), where the
-    preprocessed polynomials must lie. `commitment_scheme` holds the
-    committed FIXED_VALUES batch and nothing else (`LPCScheme.fork` of the
-    one `process_public` filled). `clock`,
+    preprocessed polynomials must lie. `commitment_scheme` (LPC or KZG)
+    holds the committed FIXED_VALUES batch and nothing else (the `fork()` of
+    the one `process_public` filled). `clock`,
     where given, is marked after each phase (`variable_commit`,
     `permutation_argument`, the lookup argument's steps and
     `lookup_argument`, `permutation_commit`, `gates_argument`, `quotient`,
-    `quotient_commit`, then `LPCScheme.proof_eval`'s); without one nothing
+    `quotient_commit`, then the scheme's `proof_eval`'s); without one nothing
     waits for the device but what needs a value. `transcript`, where
     given, is the fresh transcript to prove with (the caller then draws the
     next challenge from it); by default one of `params.transcript_hash`."""

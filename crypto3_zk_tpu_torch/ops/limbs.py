@@ -185,7 +185,8 @@ def batch_inverse(fs: FieldSpec, x: torch.Tensor, axis: int = -1):
     - a CUDA tensor is flattened behind the limb axis and goes through
       kernels 3, 4 and the tail (`hopper_msm.batch_inverse_chunked`);
     - a CPU tensor takes two prefix-product scans along `axis` and ONE
-      Fermat inversion per line."""
+      inversion per line, of the line's total, by host integers (a Fermat
+      chain of single-lane products costs a third of a second here)."""
     if axis < 0:
         axis = x.dim() + axis
     assert axis >= 1, "axis 0 is the limb axis"
@@ -199,7 +200,9 @@ def batch_inverse(fs: FieldSpec, x: torch.Tensor, axis: int = -1):
         n = x.shape[axis]
         pre = _prefix_products(fs, x, axis, reverse=False)  # inclusive prefix
         suf = _prefix_products(fs, x, axis, reverse=True)   # inclusive suffix
-        total_inv = inv(fs, pre.narrow(axis, n - 1, 1))
+        total = pre.narrow(axis, n - 1, 1)
+        total_inv = encode(fs, [pow(v, -1, fs.p) for v in decode(fs, total)],
+                           x.device).reshape(total.shape)
         one = ones_mont(fs, x.shape[1:], x.device).narrow(axis, 0, 1)
         pre_ex = torch.cat([one, pre.narrow(axis, 0, n - 1)], dim=axis)
         suf_ex = torch.cat([suf.narrow(axis, 1, n - 1), one], dim=axis)

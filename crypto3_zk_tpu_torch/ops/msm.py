@@ -1,9 +1,12 @@
-"""Fixed-base batch exponentiation and the host MSM oracle.
+"""Multi-scalar multiplication entry point, fixed-base batch
+exponentiation and the host MSM oracle.
 
-Counterpart of the parts of `ops/msm.py` of the JAX package that the
-Groth16 path uses: `fixed_base_exp_batch` (the generator's query vectors),
-`_digits_host` and `msm_host`. The variable-base MSM of this port is
-`ops/msm_affine.py`.
+Counterpart of `ops/msm.py` of the JAX package: `msm` (the reference's
+windowed Pippenger with a segmented scan; here the batched-affine MSM of
+`ops/msm_affine.py`, kernels 1, 3, 4 and the tail, with the same contract:
+host affine points and host ints in, the one output point out),
+`fixed_base_exp_batch` (the generators' query vectors, a KZG setup),
+`_digits_host` and `msm_host`.
 """
 from __future__ import annotations
 
@@ -12,7 +15,7 @@ import torch
 
 from . import curve as CRV
 from . import limbs as L
-from .msm_affine import _tmap, window_digits_np
+from .msm_affine import MSMBases, _tmap, window_digits_np
 
 
 def _digits_host(fr, scalars: list[int], c: int, windows: int) -> np.ndarray:
@@ -20,6 +23,22 @@ def _digits_host(fr, scalars: list[int], c: int, windows: int) -> np.ndarray:
     mod the scalar field), little-endian windows."""
     return window_digits_np(L.pack_ints(fr, scalars), c, windows) \
         .astype(np.uint32)
+
+
+def msm(curve, points_affine, scalars: list[int], c: int = 16,
+        group: str = "g1", device=None):
+    """sum_i scalars[i] * points_affine[i] as a host affine point (None =
+    infinity), on `device` (default: the card). `c` is the window width, in
+    [2, 16]; the output point does not depend on it. Curves with a != 0 are
+    refused before anything else. For repeated MSMs over the same points,
+    build an `MSMBases` once."""
+    if getattr(curve, "a", 0) != 0:
+        raise ValueError(f"{curve.name}: the device MSM's point formulas "
+                         f"hold for a = 0 curves only")
+    n = len(scalars)
+    assert n == len(points_affine) and n > 0
+    return MSMBases(curve, points_affine, group, window_bits=c,
+                    device=device).run(scalars)
 
 
 def fixed_base_exp_batch(curve, base, scalars: list[int], c: int = 8,

@@ -27,7 +27,10 @@ What differs from the reference, and why:
   `hopper_msm.INV_TAIL_MAX` values are left, which kernel 3's tail inverts
   in one launch; G2 denominators are
   reduced to their Fq norms first, so the same Fq kernels invert them;
-- the window width is a constructor argument (default 16 bits).
+- the window width is a constructor argument (default 16 bits);
+- the scalars' signed window digits and each group's pass count are cut on
+  the device (`run_limbs`), whether the scalars come as host ints (`run`)
+  or as a tensor already there (a KZG commitment's coefficients).
 
 Works for G1 (FqOps) and G2 (Fq2Ops) on a = 0 curves (bls12-381,
 alt_bn128). Curves with a != 0 are refused.
@@ -133,13 +136,13 @@ def _pair_combine(ops, A, B, inv_den, aux):
 # ---------------------------------------------------------------------------
 
 def _ranks(sorted_keys: torch.Tensor) -> torch.Tensor:
-    """Position of every lane inside its run of equal keys."""
+    """Position of every lane inside its run of equal keys: its index less
+    the index of its key's first lane, by a binary search of the sorted
+    keys (a running maximum of the run heads took a sixth of a KZG prove's
+    device time)."""
     n = sorted_keys.shape[0]
-    idx = torch.arange(n, dtype=torch.int32, device=sorted_keys.device)
-    heads = torch.ones(n, dtype=torch.bool, device=sorted_keys.device)
-    heads[1:] = sorted_keys[1:] != sorted_keys[:-1]
-    starts = torch.cummax(torch.where(heads, idx, 0), dim=0).values
-    return idx - starts
+    idx = torch.arange(n, dtype=torch.int64, device=sorted_keys.device)
+    return idx - torch.searchsorted(sorted_keys, sorted_keys)
 
 
 def _halving_pass(ops, x, y, keys):
@@ -208,37 +211,51 @@ def window_digits_np(limbs: np.ndarray, c: int, windows: int) -> np.ndarray:
                                 .sum(axis=2, dtype=np.int32).T)
 
 
-def _signed_digits_np(digits: np.ndarray, c: int) -> np.ndarray:
-    """(windows, N) unsigned c-bit digits -> signed digits in
-    [-2^(c-1), 2^(c-1)] with the carry rippling upward; the top window
-    keeps its (small) unsigned value so no carry escapes."""
-    out = digits.astype(np.int32)
+def _window_digits_dev(limbs: torch.Tensor, c: int,
+                       windows: int) -> torch.Tensor:
+    """`window_digits_np` on the device: (NL, N) 16-bit digits -> (windows,
+    N) int32 unsigned c-bit digits. A window of at most 16 bits spans at
+    most two digits."""
+    nl, n = limbs.shape
+    x = torch.cat([limbs.to(torch.int64),
+                   torch.zeros((2, n), dtype=torch.int64,
+                               device=limbs.device)])
+    mask = (1 << c) - 1
+    rows = []
+    for w in range(windows):
+        j, s = divmod(w * c, 16)
+        if j >= nl:
+            rows.append(torch.zeros_like(x[0]))
+        else:
+            rows.append(((x[j] | (x[j + 1] << 16)) >> s) & mask)
+    return torch.stack(rows).to(torch.int32)
+
+
+def _signed_digits_dev(digits: torch.Tensor, c: int) -> torch.Tensor:
+    """Signed digits in [-2^(c-1), 2^(c-1)] from (windows, N) unsigned
+    c-bit digits, the carry rippling upward window by window; the top
+    window keeps its (small) unsigned value so no carry escapes."""
+    out = digits.clone()
+    half, full = 1 << (c - 1), 1 << c
     for w in range(out.shape[0] - 1):
-        v = out[w]
-        hot = v >= (1 << (c - 1))
-        np.subtract(v, 1 << c, out=v, where=hot)
+        hot = (out[w] >= half).to(out.dtype)
+        out[w] -= hot * full
         out[w + 1] += hot
     return out
 
 
-def _pass_counts(sdig: np.ndarray, g_cnt: int, wg: int, c: int) -> list[int]:
-    """Per-group halving-pass counts: k* = ceil(log2(max bucket
-    multiplicity)) over the group's (window, |digit|) keys. After k* passes
-    every bucket holds at most one live lane, so the grid scatter writes no
-    slot twice."""
+def _pass_maxima_dev(sdig: torch.Tensor, g_cnt: int, wg: int,
+                     c: int) -> torch.Tensor:
+    """Each group's largest bucket multiplicity over its (window, |digit|)
+    keys, on the device: the group needs ceil(log2) of it halving passes."""
     _, n = sdig.shape
-    bucket = np.abs(sdig.astype(np.int64)).reshape(g_cnt, wg, n)
-    key = (np.arange(g_cnt * wg, dtype=np.int64)
-           .reshape(g_cnt, wg, 1) << c) | bucket
-    live = key[bucket != 0]
-    counts = [0] * g_cnt
-    if live.size:
-        bc = np.bincount(live.ravel(), minlength=(g_cnt * wg) << c)
-        span = wg << c
-        for g in range(g_cnt):
-            m = int(bc[g * span:(g + 1) * span].max(initial=0))
-            counts[g] = (m - 1).bit_length() if m > 1 else 0
-    return counts
+    bucket = sdig.abs().to(torch.int64).reshape(g_cnt, wg, n)
+    wloc = torch.arange(g_cnt * wg, dtype=torch.int64,
+                        device=sdig.device).reshape(g_cnt, wg, 1)
+    span = wg << c
+    key = torch.where(bucket != 0, (wloc << c) | bucket, g_cnt * span)
+    bc = torch.bincount(key.reshape(-1), minlength=g_cnt * span + 1)
+    return bc[:g_cnt * span].reshape(g_cnt, span).amax(dim=1)
 
 
 def _window_grouping(w: int, n: int) -> tuple[int, int]:
@@ -380,11 +397,13 @@ def _msm_group(ops, coords, sw: torch.Tensor, k_star: int, c: int):
 
 class MSMBases:
     """Device-resident encoded bases, reusable across MSMs (Groth16 proving
-    keys issue many MSMs over the same query vectors).
+    keys issue many MSMs over the same query vectors; a KZG commitment key
+    serves every commitment of a proof).
 
     `window_bits`: the Pippenger window width c (signed digits, 2^(c-1)
     buckets per window). `device`: where the bases live and the MSM runs;
-    the default is the card."""
+    the default is the card. An MSM of m scalars runs over the first m
+    bases only."""
 
     def __init__(self, curve, points_affine, group: str = "g1",
                  window_bits: int = 16, device=None):
@@ -416,28 +435,46 @@ class MSMBases:
 
     def run(self, scalars: list[int]):
         """sum_i scalars[i] * bases[i] as a host affine point (None =
-        infinity). Fewer scalars than bases are extended with zeros."""
-        curve = self.curve
-        fr = curve.fr
-        assert len(scalars) <= self.n
-        if self.n == 0:
+        infinity), for at most as many scalars as bases (`run_limbs` of
+        their digits)."""
+        if not scalars:
             return None
-        limbs_np = np.zeros((fr.nl, self.n), np.uint32)
-        limbs_np[:, :len(scalars)] = L.pack_ints(fr, scalars)
-        if self._inf_pos.size:
-            limbs_np[:, self._inf_pos] = 0
+        return self.run_limbs(
+            L.from_numpy(L.pack_ints(self.curve.fr, scalars), self.device))
+
+    def run_limbs(self, limbs: torch.Tensor):
+        """The MSM of scalars that lie on the bases' device as canonical
+        (not Montgomery) 16-bit digits (NL, m), over the first m bases: the
+        signed window digits are cut on the device, and the one transfer is
+        each group's largest bucket multiplicity (all 0 only for scalars
+        that are all 0)."""
+        fr = self.curve.fr
+        m = limbs.shape[-1]
+        assert m <= self.n and limbs.device.type == self.device.type
+        if m == 0:
+            return None
+        inf = self._inf_pos[self._inf_pos < m]
+        if inf.size:
+            limbs = limbs.clone()
+            limbs[:, torch.from_numpy(inf).to(self.device)] = 0
         windows = n_windows(fr.bits, self.c)
-        sdig = _signed_digits_np(
-            window_digits_np(limbs_np, self.c, windows), self.c)
-        g_cnt, wg = _window_grouping(windows, self.n)
-        k_stars = _pass_counts(sdig, g_cnt, wg, self.c)
-        sdig_dev = torch.from_numpy(sdig).to(self.device)
-        coords = (self.X, self.Y, self.Yneg)
-        totals = [_msm_group(self.ops, coords, sdig_dev[g * wg:(g + 1) * wg],
+        sdig = _signed_digits_dev(
+            _window_digits_dev(limbs, self.c, windows), self.c)
+        g_cnt, wg = _window_grouping(windows, m)
+        maxima = _pass_maxima_dev(sdig, g_cnt, wg, self.c).tolist()
+        if not any(maxima):
+            return None
+        # halving passes a group needs: after k* passes every bucket holds
+        # at most one live lane, so the grid scatter writes no slot twice
+        k_stars = [(mx - 1).bit_length() if mx > 1 else 0 for mx in maxima]
+        coords = tuple(_tmap(lambda a: a[..., :m], t)
+                       for t in (self.X, self.Y, self.Yneg))
+        totals = [_msm_group(self.ops, coords, sdig[g * wg:(g + 1) * wg],
                              k_stars[g], self.c) for g in range(g_cnt)]
         totals = tuple(_tmap(lambda *a: torch.cat(a, dim=-1), *cs)
                        for cs in zip(*totals))
-        return _combine_windows(curve, self.ops, totals, self.group, self.c)
+        return _combine_windows(self.curve, self.ops, totals, self.group,
+                                self.c)
 
 
 def _combine_windows(curve, ops, totals, group: str, c: int):

@@ -119,32 +119,47 @@ class Poly:
 
     # --- division ---
     def divide_by_linear(self, z: int) -> "Poly":
-        """q = (f - f(z)) / (x - z), exact. Done in evaluation form over a
-        domain of size >= n with pointwise batched inversion, in place of
-        the reference's coefficient long division (`lpc.hpp:131-181`). Falls
-        back to host synthetic division if z happens to lie in the domain."""
-        fs = self.fs
-        m = _next_pow2(max(self.n, 2))
-        d = get_domain(fs, m)
-        if pow(z % fs.p, m, fs.p) == 1:  # z in domain: host fallback
-            coeffs = self.to_ints()
-            out = [0] * (len(coeffs) - 1)
-            acc = 0
-            for i in range(len(coeffs) - 1, 0, -1):
-                acc = (acc * z + coeffs[i]) % fs.p
-                out[i - 1] = acc
-            return Poly.from_ints(fs, out if out else [0], self.device)
-        evals = d.fft(self._pad_to(m))
-        fz = self.evaluate(z)
-        num = L.sub(fs, evals, L.const_mont(fs, fz, (1,), self.device))
-        wi = L.powers(fs, d.omega, m, self.device)
-        den = L.sub(fs, wi, L.const_mont(fs, z, (1,), self.device))
-        q_evals = L.mont_mul(fs, num, L.batch_inverse(fs, den, axis=1))
-        q = d.ifft(q_evals)
-        return Poly(fs, q[..., : max(self.n - 1, 1)])
+        """q = (f - f(z)) / (x - z), exact (`divide_by_roots`), in place of
+        the reference's coefficient long division (`lpc.hpp:131-181`)."""
+        fz = Poly.from_ints(self.fs, [self.evaluate(z)], self.device)
+        return divide_by_roots(self - fz, [z])
 
     def __repr__(self):
         return f"Poly<{self.fs.name}, n={self.n}>"
+
+
+def _coset_shift(fs: FieldSpec, roots: list[int], m: int) -> int:
+    """The first of g, g^2, ... (g the field's generator) whose coset
+    s*D_m holds none of the roots: x lies in s*D_m iff x^m = s^m."""
+    held = {pow(r % fs.p, m, fs.p) for r in roots}
+    s = fs.generator
+    while pow(s, m, fs.p) in held:
+        s = s * fs.generator % fs.p
+    return s
+
+
+def divide_by_roots(f: Poly, roots: list[int]) -> Poly:
+    """f / prod_r (x - r) for an f that vanishes at every root, exact: the
+    same polynomial, of the same length, as dividing by each root in turn.
+    One pass in evaluation form on a coset s*D_m of the transform's domain
+    that holds no root, so no denominator is zero: one coset transform, the
+    denominators' product, one batched inversion, one inverse coset
+    transform (kernels 1 to 4 and the tail)."""
+    if not roots:
+        return f
+    fs, dev = f.fs, f.device
+    m = _next_pow2(max(f.n, 2))
+    s = _coset_shift(fs, roots, m)
+    xs = L.mont_mul(fs, L.powers(fs, get_domain(fs, m).omega, m, dev),
+                    L.const_mont(fs, s, (1,), dev))          # s * w^i
+    den = None
+    for r in roots:
+        term = L.sub(fs, xs, L.const_mont(fs, r, (1,), dev))
+        den = term if den is None else L.mont_mul(fs, den, term)
+    evals = N.coset_ntt(fs, _pad_last(f.c, m), s)
+    q = N.coset_intt(fs, L.mont_mul(fs, evals,
+                                    L.batch_inverse(fs, den, axis=1)), s)
+    return Poly(fs, q[..., :max(f.n - len(roots), 1)])
 
 
 class PolyDFS:

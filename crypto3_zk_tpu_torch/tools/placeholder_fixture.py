@@ -10,6 +10,12 @@ lambda_=40)`.
     run.preprocess()                          # process_public / _private
     proof, challenge = run.prove()            # each prove on a fork
     ok, verifier_challenge = run.verify(proof)
+
+`PlaceholderKZGRun` is the same circuit over alt_bn128 Fr proved over KZG
+(`commitments/kzg.py`), as the reference's KZG runner
+(`tests/test_placeholder.py:134-187` of the JAX package): keccak-256
+transcript, an SRS of 4 * rows + 8 powers of tau made on the device and 8
+in G2, `KZGSchemeV2` or `KZGSchemeBDFG`.
 """
 from __future__ import annotations
 
@@ -18,7 +24,9 @@ import time
 
 from ..arithmetization.circuits import placeholder_chain
 from ..commitments import fri as FRI
+from ..commitments import kzg as KZG
 from ..commitments.lpc import LPCScheme
+from ..fields import curves as CV
 from ..fields import params as P
 from ..models.placeholder import common as C
 from ..models.placeholder import preprocessor as PP
@@ -52,11 +60,15 @@ class PlaceholderRun:
             lambda_=lambda_, merkle_hash=merkle_hash,
             transcript_hash=transcript_hash)
 
+    def new_scheme(self, prover: bool = True):
+        """A fresh commitment scheme (the prover's or the verifier's)."""
+        return LPCScheme(self.fri_params)
+
     def preprocess(self, clock: FRI.PhaseClock | None = None) -> None:
         """`process_public` (which commits the fixed batch into
         `self.scheme`) and `process_private`. `clock`: a
         `fri.PhaseClock` for process_public's steps."""
-        self.scheme = LPCScheme(self.fri_params)
+        self.scheme = self.new_scheme()
         t0 = time.perf_counter()
         self.public = PP.process_public(self.params, self.cs, self.assignment,
                                         self.desc, self.scheme,
@@ -86,7 +98,42 @@ class PlaceholderRun:
         challenge."""
         tr = self._transcript()
         ok = verify(self.params, self.public.common_data, proof, self.desc,
-                    self.cs, LPCScheme(self.fri_params),
+                    self.cs, self.new_scheme(prover=False),
                     public_input=self.public_input if public_input is None
                     else public_input, transcript=tr)
         return ok, tr.challenge(self.fs)
+
+
+class PlaceholderKZGRun(PlaceholderRun):
+    """`PlaceholderRun` over alt_bn128 Fr and KZG: `scheme` is "v2"
+    (`KZGSchemeV2`) or "bdfg" (`KZGSchemeBDFG`). The SRS is made at
+    construction, on `device` (its seconds in `seconds["kzg_setup"]`), from
+    a tau drawn from the seed."""
+
+    SCHEMES = {"v2": KZG.KZGSchemeV2, "bdfg": KZG.KZGSchemeBDFG}
+
+    def __init__(self, rows_log: int, device, scheme: str = "v2",
+                 table_bits: int = 8, seed: int = 21, kzg_params=None):
+        self.curve = CV.ALT_BN128
+        self.fs = self.curve.fr
+        self.device = device
+        self.table_bits = table_bits
+        self.scheme_cls = self.SCHEMES[scheme]
+        self.seconds: dict[str, float] = {}
+        rng = random.Random(seed)
+        t0 = time.perf_counter()
+        (self.cs, self.assignment, self.desc,
+         self.public_input) = placeholder_chain(
+            self.fs.p, (1 << rows_log) - 6, rng, table_bits)
+        self.seconds["circuit"] = time.perf_counter() - t0
+        self.params = C.PlaceholderParams(self.fs,
+                                          transcript_hash="keccak_256")
+        t0 = time.perf_counter()
+        self.kzg_params = kzg_params or KZG.KZGParams.setup(
+            self.curve, 4 * self.desc.rows_amount + 8,
+            tau=rng.randrange(2, self.fs.p), d2=8, device=device)
+        self.seconds["kzg_setup"] = time.perf_counter() - t0
+
+    def new_scheme(self, prover: bool = True):
+        return self.scheme_cls(self.kzg_params,
+                               self.device if prover else None)

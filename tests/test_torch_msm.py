@@ -266,29 +266,31 @@ def test_msm_refuses_curves_with_nonzero_a():
 
 
 def test_signed_digits_and_pass_counts():
+    """The signed window digits cut on the device recompose every scalar
+    for window widths on and across digit edges, and the pass counts follow
+    the largest bucket."""
     fr = TCURVE.fr
-    c = 5
     sc = [0, 1, fr.p - 1, 31, 16, 48] + [random.Random(4).randrange(fr.p)
                                          for _ in range(20)]
-    w = TMA.n_windows(fr.bits, c)
-    sd = TMA._signed_digits_np(
-        TMA.window_digits_np(TL.pack_ints(fr, sc), c, w), c)
-    assert np.abs(sd).max() <= 1 << (c - 1)
-    assert [sum(int(sd[j, i]) << (c * j) for j in range(w))
-            for i in range(len(sc))] == sc
-    eq = TMA._signed_digits_np(
-        TMA.window_digits_np(TL.pack_ints(fr, [12345] * 64), c, w), c)
-    assert TMA._pass_counts(eq, 1, w, c) == [6]
-    one = TMA._signed_digits_np(
-        TMA.window_digits_np(TL.pack_ints(fr, [7]), c, w), c)
-    assert TMA._pass_counts(one, 1, w, c) == [0]
-    assert TMA._pass_counts(np.zeros((w, 32), np.int32), 1, w, c) == [0]
+
+    def signed(xs, c):
+        w = TMA.n_windows(fr.bits, c)
+        return TMA._signed_digits_dev(TMA._window_digits_dev(
+            TL.from_numpy(TL.pack_ints(fr, xs), "cpu"), c, w), c), w
+
+    for c in (3, 5, 13, 16):
+        sd, w = signed(sc, c)
+        assert int(sd.abs().max()) <= 1 << (c - 1)
+        assert [sum(int(sd[j, i]) << (c * j) for j in range(w))
+                for i in range(len(sc))] == sc
+    c = 5
+    eq, w = signed([12345] * 64, c)
+    assert TMA._pass_maxima_dev(eq, 1, w, c).tolist() == [64]   # 6 passes
+    one, w = signed([7], c)
+    assert TMA._pass_maxima_dev(one, 1, w, c).tolist() == [1]   # none
+    zero = torch.zeros((w, 32), dtype=torch.int32)
+    assert TMA._pass_maxima_dev(zero, 1, w, c).tolist() == [0]
     # the default width, 16 bits, reads the digits off the limbs directly
-    w16 = TMA.n_windows(fr.bits, 16)
-    sd16 = TMA._signed_digits_np(
-        TMA.window_digits_np(TL.pack_ints(fr, sc), 16, w16), 16)
-    assert [sum(int(sd16[j, i]) << (16 * j) for j in range(w16))
-            for i in range(len(sc))] == sc
     np.testing.assert_array_equal(
         TM._digits_host(fr, sc, 16, fr.nl), TL.pack_ints(fr, sc))
 
