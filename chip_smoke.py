@@ -465,9 +465,14 @@ def scalar_mul_inputs(torch, curve, group, gen, n: int, distinct: int = 64):
     """n Jacobian points on the card (`distinct` random host points, tiled,
     lane 4 at infinity, lane 9 the negative of lane 8's point) and n
     scalars below r: lanes 0 to 3 are 0, 1, r - 1, 5; lanes 5 and 6 are r
-    and r + 2, whose ladders end in P + (-P) and P + P."""
+    and r + 2; from lane 10 `tools/scalar_mul_shapes.py::edge_scalars` at
+    the instance's window (a zero digit in the middle and at the top, a top
+    digit that is the carry alone, a window of all ones, last additions
+    that meet acc = T[d] and acc = -T[d], 2^bits - 1)."""
     from crypto3_zk_tpu_torch.fields import curves as CV
+    from crypto3_zk_tpu_torch.ops import hopper_curve as HC
     from crypto3_zk_tpu_torch.ops import points as PT
+    from crypto3_zk_tpu_torch.tools import scalar_mul_shapes as SMS
     rng = random.Random(n + distinct)
     mul = CV.g1_mul if group == "g1" else CV.g2_mul
     neg = CV.g1_neg if group == "g1" else CV.g2_neg
@@ -480,37 +485,87 @@ def scalar_mul_inputs(torch, curve, group, gen, n: int, distinct: int = 64):
     vec = PT.PointVector(curve, group, host=pts)
     k = rand_field(torch, curve.fr, (n,), gen)
     r = curve.fr.p
-    for lane, v in enumerate([0, 1, r - 1, 5, 7, r, r + 2]):
+    edges = SMS.edge_scalars(r, curve.fr.bits, HC.WINDOW[group], rng)
+    lanes = {**dict(enumerate([0, 1, r - 1, 5, 7, r, r + 2])),
+             **dict(enumerate(edges.values(), start=10))}
+    for lane, v in lanes.items():
         k[:, lane] = torch.tensor([(v >> (16 * j)) & 0xFFFF
                                    for j in range(curve.fr.nl)],
                                   dtype=torch.int32, device="cuda")
     return vec.jacobian("cuda"), k, pts
 
 
+def _finite(P, group):
+    z = P[2] if group == "g1" else P[2][0]
+    return (z != 0).any(dim=0)
+
+
 def scalar_mul_products(torch, curve, group, P, k) -> int:
-    """Montgomery products kernel 6 runs on these inputs: 7 a doubling for
-    every bit of every lane, 16 an addition where a set bit meets a
-    non-infinity accumulator (every set bit after a lane's first) and a
-    finite point; three Fq products an Fq2 product."""
+    """Fq products kernel 6 runs on these inputs (a G1 squaring or product
+    is one; a G2 squaring two, a G2 product three): per lane the table
+    (T[1] + T[1] up to the doubling case, 2 squarings and 6 products, its
+    doubling, then 2^(w-1) - 2 additions of 4 squarings and 12 products),
+    w doublings of 5 squarings and 2 products for each window below the
+    top, and an addition for each nonzero digit after the first (the first
+    is loaded, or added to infinity, which costs nothing). A point at
+    infinity runs its doublings only."""
+    from crypto3_zk_tpu_torch.ops import hopper_curve as HC
+    sq, mu = (1, 1) if group == "g1" else (2, 3)
+    dbl, add = 5 * sq + 2 * mu, 4 * sq + 12 * mu
+    w = HC.WINDOW[group]
+    digits = HC.signed_digits(k, curve.fr.bits, w)
+    n = P[0].shape[1] if group == "g1" else P[0][0].shape[1]
+    nnz = (digits != 0).sum(dim=0).expand(n)
+    finite = _finite(P, group)
+    table = 2 * sq + 6 * mu + dbl + ((1 << (w - 1)) - 2) * add
+    adds = int(((nnz - 1).clamp(min=0) * finite).sum().item())
+    return (digits.shape[0] - 1) * w * dbl * n \
+        + table * int(finite.sum().item()) + add * adds
+
+
+def ladder_products(torch, curve, group, P, k) -> int:
+    """The products of the double-and-add ladder kernel 6 ran until this
+    design replaced it (kept so that rows compare across versions): 7 a
+    doubling for every bit of every lane, 16 an addition where a set bit
+    meets a non-infinity accumulator (every set bit after a lane's first)
+    and a finite point; three Fq products an Fq2 product."""
     nbits = curve.fr.bits
     bits = sum(((k.to(torch.int64) >> b) & 1).sum(dim=0) for b in range(16))
-    z = P[2] if group == "g1" else P[2][0]
-    finite = (z != 0).any(dim=0)
-    adds = int(((bits - 1).clamp(min=0) * finite).sum().item())
+    adds = int(((bits - 1).clamp(min=0) * _finite(P, group)).sum().item())
     products = 7 * nbits * k.shape[1] + 16 * adds
     return products * (1 if group == "g1" else 3)
 
 
+def scalar_mul_ptxas() -> dict:
+    """Registers and spill bytes of kernel 6's four instances, from the
+    `ptxas -v` log kept with each library, beside each instance's compiled
+    shape (window, threads, blocks an SM, shared bytes a block)."""
+    from crypto3_zk_tpu_torch import kernels as K
+    from crypto3_zk_tpu_torch.ops import hopper_curve as HC
+    from crypto3_zk_tpu_torch.tools import scalar_mul_shapes as SMS
+    out = {}
+    for group, deg in (("g1", 1), ("g2", 2)):
+        usage = SMS.parse_ptxas(K.build_log(SMS.SOURCE[group]))
+        for nw in (8, 12):
+            out[f"{group} {nw} words"] = {
+                **SMS.shape(K.entry(HC.entry_name(group) + "_shape"), nw),
+                **usage.get((nw, deg), {})}
+    return out
+
+
 def check_scalar_mul(torch, gen, compare, measure):
-    """Kernel 6 against its plain version (the same ladder with `ops/
-    curve.py`'s formulas, whose field operations on the card are kernel 1's
-    and the add / subtract entries, checked above) at 2^16 points, G1 and
+    """Kernel 6 against its plain version (the same schedule of signed
+    windows with `ops/curve.py`'s formulas, whose field operations on the
+    card are kernel 1's and the add / subtract entries, checked above) at
+    2^16 points, G1 and
     G2 on alt_bn128 and bls12-381, digit for digit in Jacobian form (hence
     equal affine points too), with the edge lanes of `scalar_mul_inputs`
     and one broadcast scalar; 32 lanes are also held against the host's
     double-and-add. Then alt_bn128 at the transform's batch sizes
     (`SCALAR_MUL_TRANSFORM`). alt_bn128 G1 is timed (the ceremony's G1
-    batches); G2's time, bounds and plain time go into the same row. Last,
+    batches); G2's time, bounds and plain time go into the same row, with
+    the bounds of the ladder kernel 6 ran before (`ladder_products`) and
+    the four instances' registers and spills. Last,
     `points.mul`'s two routes (kernel 6, the host's double-and-add) are
     timed against each other at small batches
     (`tools/scalar_mul_crossover.py`)."""
@@ -523,19 +578,14 @@ def check_scalar_mul(torch, gen, compare, measure):
     def flat(P, group):
         return tuple(HC._flat(P, group))
 
-    def point(coords, group):
-        if group == "g1":
-            return tuple(coords)
-        return tuple(tuple(coords[i:i + 2]) for i in (0, 2, 4))
-
     # kernel and plain version on (coordinates..., scalars), flat tuples
     def kernel_of(curve, group):
         return lambda fs, *a: flat(HC.scalar_mul_batch_hopper(
-            curve, point(a[:-1], group), a[-1], group), group)
+            curve, HC._point(a[:-1], group), a[-1], group), group)
 
     def plain_of(curve, group):
         return lambda fs, *a: flat(HC.scalar_mul_batch_plain(
-            curve, point(a[:-1], group), a[-1], group), group)
+            curve, HC._point(a[:-1], group), a[-1], group), group)
 
     g2_ms = {}
     for curve in (CV.ALT_BN128, CV.BLS12_381):
@@ -569,6 +619,9 @@ def check_scalar_mul(torch, gen, compare, measure):
                     * mont_ops(curve.fq.nl)
                 g2_ms["bound_ms"], _ = bound(g2_bytes, g2_ops)
                 g2_ms["int_bound_ms"] = int_bound_ms(g2_bytes, g2_ops)
+                g2_ms["ladder_int_bound_ms"] = int_bound_ms(
+                    g2_bytes, ladder_products(torch, curve, group, P, k)
+                    * mont_ops(curve.fq.nl))
             del P, k, got
     curve, fq = CV.ALT_BN128, CV.ALT_BN128.fq
     for group, size in SCALAR_MUL_TRANSFORM.items():
@@ -588,10 +641,17 @@ def check_scalar_mul(torch, gen, compare, measure):
                   kernel_of(curve, "g1"), plain_of(curve, "g1"), make,
                   bytes_moved=2 * 3 * fq.nl * 4 * n + 64 * n, ops=ops,
                   per_set_bytes=3 * fq.nl * 4 * n, plain_reps=1)
+    row["ladder_int_bound_ms"] = int_bound_ms(
+        2 * 3 * fq.nl * 4 * n + 64 * n,
+        ladder_products(torch, curve, "g1", P, k) * mont_ops(fq.nl))
     row.update({"g2_" + key: v for key, v in g2_ms.items()})
+    row["ptxas"] = scalar_mul_ptxas()
     log(f"  scalar_mul g2 {curve.name} 2^16: {g2_ms['ms']:.4f} ms, plain "
         f"{g2_ms['plain_ms']:.2f} ms, bound {g2_ms['bound_ms']:.4f} ms, "
-        f"integer-rate bound {g2_ms['int_bound_ms']:.4f} ms")
+        f"integer-rate bound {g2_ms['int_bound_ms']:.4f} ms; the ladder's "
+        f"integer-rate bounds G1 {row['ladder_int_bound_ms']:.4f}, G2 "
+        f"{g2_ms['ladder_int_bound_ms']:.4f} ms")
+    log(f"  kernel 6 instances: {json.dumps(row['ptxas'])}")
     from crypto3_zk_tpu_torch.tools import scalar_mul_crossover as SMX
     row["crossover"] = SMX.measure("cuda", CROSSOVER_LOGS, 3)
     log(f"  points.mul routes, kernel 6 against the host (ms): "

@@ -9,3 +9,9 @@ extern "C" int zk_scalar_mul_g2(int nw, const uint32_t* consts,
   return scalar_mul_launch<2>(nw, consts, pts, scalars, ns, out, n, nbits,
                                stream);
 }
+
+// shape[0..3]: window bits, threads a block, blocks an SM, shared bytes a
+// block of the nw-word instance
+extern "C" int zk_scalar_mul_g2_shape(int nw, int* shape) {
+  return scalar_mul_shape<2>(nw, shape);
+}

@@ -44,8 +44,10 @@ SOURCES: dict[str, dict[str, list]] = {
                                             _I, _P],
                     "zk_poseidon_tree": [_I, _P, _P, _P, _P, _P, _P, _I, _I,
                                          _P]},
-    "scalar_mul.cu": {"zk_scalar_mul_g1": _SCALAR_MUL},
-    "scalar_mul_g2.cu": {"zk_scalar_mul_g2": _SCALAR_MUL},
+    "scalar_mul.cu": {"zk_scalar_mul_g1": _SCALAR_MUL,
+                      "zk_scalar_mul_g1_shape": [_I, _P]},
+    "scalar_mul_g2.cu": {"zk_scalar_mul_g2": _SCALAR_MUL,
+                         "zk_scalar_mul_g2_shape": [_I, _P]},
     # a measurement loop, no kernel of a path (`chip_smoke.py` reads the
     # card's integer multiply-add rate with it)
     "rate.cu": {"zk_imad_rate": [_P, _I, _I, _I, _P]},
@@ -96,11 +98,10 @@ def build_all(verbose: bool = False) -> float:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-I", str(CSRC), "-o", str(tmp), str(path)]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
+        cmd = [_nvcc(), "-Xptxas=-v", "-gencode",
+               "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "-shared", "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o",
+               str(tmp), str(path)]
         procs.append((src, tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -112,6 +113,7 @@ def build_all(verbose: bool = False) -> float:
             continue
         if verbose and log:
             print(log)
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -123,6 +125,14 @@ def build_all(verbose: bool = False) -> float:
             fn.restype = ctypes.c_int
             _entry_points[name] = fn
     return time.perf_counter() - t0
+
+
+def build_log(src: str) -> str:
+    """What `nvcc` and `ptxas -v` printed when the current library of
+    `src` was built (registers, spills), or "" if it was not kept."""
+    tag = hashlib.sha1(headers() + (CSRC / src).read_bytes()).hexdigest()[:12]
+    log = build_dir() / f"lib{pathlib.Path(src).stem}-{tag}.log"
+    return log.read_text() if log.exists() else ""
 
 
 def entry(name: str):

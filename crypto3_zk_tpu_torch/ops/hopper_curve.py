@@ -8,10 +8,11 @@
   `g2_mul` loops (`commitments/powers_of_tau.py`: the accumulator's
   transform and the group iNTT; `models/groth16/mpc.py`: the keypair from
   a ceremony and the phase-2 contributions). One thread runs one point's
-  whole double-and-add, so a batch is one launch where the elementwise ops
-  of `ops/curve.py` would take thousands. Bound by the operations: about
-  254 doublings of 7 products and 127 additions of 16 products per G1
-  point, three Fq products an Fq2 product.
+  whole multiplication, so a batch is one launch where the elementwise ops
+  of `ops/curve.py` would take thousands. Schedule: signed fixed windows of
+  `WINDOW` bits (`signed_digits`) over a table of [1]P .. [2^(w-1)]P in
+  shared memory; bound by the operations: per G1 point about bits(r)
+  doublings of 7 products and bits(r) / w additions of 16.
 
 Points are in the layout of `ops/curve.py`: a G1 point is (X, Y, Z) of
 (NL, N) Montgomery digit tensors, a G2 point the same with each coordinate
@@ -22,11 +23,12 @@ kernel instance of 8 or 12 words (alt_bn128, bls12-381) are taken; G2 is
 over Fq2 with u^2 = -1. Any other curve is refused before anything else.
 
 The wrapper runs its plain version only for a tensor that lies on the CPU;
-on a CUDA tensor it launches the kernel or raises. The plain version is the
-same ladder over whole tensors with `ops/curve.py`'s `jac_double` and
-`jac_add`, which select where the kernel branches; both give the same
-Jacobian digits. `LAUNCHES` counts launches and `ELEMENTS` the points they
-ran on: measurement state only, nothing in the port reads them.
+on a CUDA tensor it launches the kernel or raises. The plain version runs
+the kernel's schedule over whole tensors with `ops/curve.py`'s
+`jac_double`, `jac_add` and `jac_neg`, which select where the kernel
+branches; both give the same Jacobian digits. `LAUNCHES` counts launches
+and `ELEMENTS` the points they ran on: measurement state only, nothing in
+the port reads them.
 """
 from __future__ import annotations
 
@@ -39,6 +41,10 @@ LAUNCHES = {"scalar_mul": 0}
 ELEMENTS = {"scalar_mul": 0}
 
 SCALAR_DIGITS = 16          # 256-bit scalars as 16-bit digits
+# window bits by group, as `ScalarMulShape` in `csrc/scalar_mul.cuh` has
+# them (the C entries `zk_scalar_mul_g1_shape` / `_g2_shape` report what
+# was compiled)
+WINDOW = {"g1": 4, "g2": 3}
 
 
 def check_curve(curve) -> None:
@@ -61,6 +67,13 @@ def _flat(P, group: str) -> list:
     return list(P) if group == "g1" else [c for pair in P for c in pair]
 
 
+def _point(coords, group: str):
+    """The inverse of `_flat`."""
+    if group == "g1":
+        return tuple(coords)
+    return tuple(tuple(coords[i:i + 2]) for i in (0, 2, 4))
+
+
 def _check_scalars(k: torch.Tensor, n: int) -> None:
     if k.dim() != 2 or k.shape[0] != SCALAR_DIGITS \
             or k.shape[1] not in (1, n):
@@ -69,22 +82,62 @@ def _check_scalars(k: torch.Tensor, n: int) -> None:
                          f" for N = {n}")
 
 
+def signed_digits(k: torch.Tensor, nbits: int, w: int) -> torch.Tensor:
+    """(16, Ns) scalar digits -> (nbits // w + 1, Ns) int64 digits d_i in
+    [-2^(w-1), 2^(w-1)] with k = sum d_i 2^(w i), bits of k from `nbits`
+    up read as 0. Digit i is Booth's recoding of bits w i - 1 .. w i + w - 1
+    (bit -1 is 0): with v those w + 1 bits, d = ceil(v / 2) - 2^w * (top
+    bit of v). The top digit reads the bit below it and so takes the carry
+    out of the window under it; it is never negative."""
+    k64 = k.to(torch.int64)
+    pos = torch.arange(SCALAR_DIGITS * 16, device=k.device)
+    bits = (k64[pos >> 4] >> (pos & 15)[:, None]) & 1
+    bits[nbits:] = 0
+    ns = k.shape[1]
+    nwin = nbits // w + 1
+    # ext[j] is bit j - 1
+    ext = torch.cat([bits.new_zeros((1, ns)), bits,
+                     bits.new_zeros((w + 1, ns))])
+    idx = w * torch.arange(nwin, device=k.device)[:, None] \
+        + torch.arange(w + 1, device=k.device)[None, :]
+    v = (ext[idx] << torch.arange(w + 1, device=k.device)[None, :, None]) \
+        .sum(dim=1)
+    return ((v + 1) >> 1) - ((v >> w) << w)
+
+
 def scalar_mul_batch_plain(curve, P, k: torch.Tensor, group: str = "g1"):
-    """The ladder of kernel 6 over whole tensors: from (1, 1, 0), for each
-    of bits(r) bits, top first, double, then add P where the bit is set."""
+    """Kernel 6's schedule over whole tensors: the table T[1] = P, T[j] =
+    `jac_add(P, T[j-1])` up to j = 2^(w-1); acc = sign(d) T[|d|] of the top
+    digit (infinity for 0); then for each lower digit, top first, w
+    doublings and acc = `jac_add(sign(d) T[|d|], acc)` where d != 0."""
     check_curve(curve)
     ops = group_ops(curve, group, k.device)
     n = _flat(P, group)[0].shape[1]
     _check_scalars(k, n)
-    k64 = k.to(torch.int64)
-    acc = CRV.inf_point(ops, (n,))
-    for b in reversed(range(curve.fr.bits)):
-        acc = CRV.jac_double(ops, acc)
-        bit = ((k64[b >> 4] >> (b & 15)) & 1).bool()
-        if bool(bit.any()):
-            acc = CRV.point_select(ops, bit, CRV.jac_add(ops, acc, P), acc)
-    return tuple(tuple(x.contiguous() for x in c) if isinstance(c, tuple)
-                 else c.contiguous() for c in acc)
+    w = WINDOW[group]
+    digits = signed_digits(k, curve.fr.bits, w).expand(-1, n)
+    table = [P]
+    for _ in range((1 << (w - 1)) - 1):
+        table.append(CRV.jac_add(ops, P, table[-1]))
+    stacked = [torch.stack(c) for c in zip(*(_flat(t, group)
+                                             for t in table))]
+
+    def entry(d):
+        idx = (d.abs() - 1).clamp(min=0)
+        pt = _point([c.gather(0, idx.expand(c.shape[1], n)[None])[0]
+                     for c in stacked], group)
+        return CRV.point_select(ops, d < 0, CRV.jac_neg(ops, pt), pt)
+
+    acc = CRV.point_select(ops, digits[-1] != 0, entry(digits[-1]),
+                           CRV.inf_point(ops, (n,)))
+    for i in reversed(range(digits.shape[0] - 1)):
+        for _ in range(w):
+            acc = CRV.jac_double(ops, acc)
+        nz = digits[i] != 0
+        if bool(nz.any()):
+            acc = CRV.point_select(
+                ops, nz, CRV.jac_add(ops, entry(digits[i]), acc), acc)
+    return _point([c.contiguous() for c in _flat(acc, group)], group)
 
 
 def entry_name(group: str) -> str:
@@ -111,9 +164,7 @@ def run_entry(fn, curve, P, k: torch.Tensor, group: str, stream):
     nw, consts = K.field_consts(fs)
     K.check(fn(nw, consts, pts.data_ptr(), k.data_ptr(), k.shape[1],
                out.data_ptr(), n, curve.fr.bits, stream), entry_name(group))
-    if group == "g1":
-        return (out[0], out[1], out[2])
-    return ((out[0], out[1]), (out[2], out[3]), (out[4], out[5]))
+    return _point(list(out), group)
 
 
 def scalar_mul_batch_hopper(curve, P, k: torch.Tensor, group: str = "g1"):

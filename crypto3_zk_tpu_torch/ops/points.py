@@ -39,9 +39,9 @@ from .msm_affine import _ranks, _take, _tmap
 # From this many points a batch of scalar multiplications runs on the
 # device, by device type: the crossovers measured by
 # `tools/scalar_mul_crossover.py` (PERF.md section 6). On the card kernel 6
-# is faster at every size measured; on the CPU its plain version (a ladder
-# of whole-tensor ops) is slower than the host's double-and-add at every
-# size measured, so there the host multiplies.
+# is faster at every size measured; on the CPU its plain version (its
+# schedule in whole-tensor curve ops) is slower than the host's
+# double-and-add at every size measured, so there the host multiplies.
 DEVICE_MIN = {"cuda": 1, "cpu": float("inf")}
 
 

@@ -19,6 +19,7 @@ from crypto3_zk_tpu_torch.ops import hopper_msm as HM
 from crypto3_zk_tpu_torch.ops import limbs as TL
 from crypto3_zk_tpu_torch.ops import points as TPT
 from crypto3_zk_tpu_torch.tools import host_kernels
+from crypto3_zk_tpu_torch.tools import scalar_mul_shapes as SMS
 
 import torch_threads  # noqa: F401  one torch thread a worker
 
@@ -388,19 +389,41 @@ def test_poseidon_tree_form_small_trees(entry, flavour):
 
 
 def _scalar_mul_case(curve, group):
-    """Eight points and scalars that reach every branch of kernel 6: 0, 1,
-    r - 1, random scalars, a point at infinity, and r and r + 2, whose
-    ladders end in P + (-P) (infinity) and P + P (the doubling branch)."""
+    """Points and scalars that reach every branch of kernel 6 at its window
+    w: 0, 1, r - 1, random scalars, a point at infinity (lane 4), and
+    `scalar_mul_shapes.edge_scalars`, each checked here for the digits that
+    take it there: a zero digit in the middle (no addition at that step), a
+    zero top digit (acc starts at infinity, the first addition takes the
+    table's entry), a top digit that is the carry alone, a window of all
+    ones (digit -1: Y negated, a carry into the window above), r + 2d and
+    r, whose last additions meet acc = T[d] (the doubling case) and acc =
+    -T[d] (infinity), d the last digit, and 2^bits - 1 (zero digits but the
+    lowest and the top)."""
     rng = random.Random(66)
     mul = TCV.g1_mul if group == "g1" else TCV.g2_mul
     gen = curve.g1 if group == "g1" else curve.g2
-    r = curve.fr.p
-    pts = [mul(curve, gen, rng.randrange(1, r)) for _ in range(8)]
+    r, nbits = curve.fr.p, curve.fr.bits
+    w = HC.WINDOW[group]
+    edges = SMS.edge_scalars(r, nbits, w, rng)
+    ks = [0, 1, r - 1, rng.randrange(r), 5, rng.randrange(r)] \
+        + list(edges.values())
+    pts = [mul(curve, gen, rng.randrange(1, r)) for _ in ks]
     pts[4] = None
-    ks = [0, 1, r - 1, rng.randrange(r), 5, r, r + 2, rng.randrange(r)]
     digits = torch.tensor([[(k >> (16 * j)) & 0xFFFF for k in ks]
                            for j in range(HC.SCALAR_DIGITS)],
                           dtype=torch.int32)
+    d = HC.signed_digits(digits, nbits, w)
+    lane = dict(zip(edges, range(6, len(ks))))
+    mid = d.shape[0] // 2
+    assert d[mid, lane["zero digit in the middle"]] == 0
+    assert d[-1, lane["zero top digit"]] == 0
+    assert d[-1, lane["top digit from the carry"]] == 1
+    assert d[mid, lane["window of all ones"]] == -1
+    for name, acc_over_d in (("last addition meets acc = T[d]", 1),
+                             ("last addition meets acc = -T[d]", -1)):
+        k, last = ks[lane[name]], int(d[0, lane[name]])
+        assert last != 0 and (k - last - acc_over_d * last) % r == 0
+    assert (d[1:-1, lane["all ones"]] == 0).all()
     return pts, ks, digits, mul
 
 
@@ -412,10 +435,13 @@ def test_scalar_mul_kernel_matches_its_plain_version(entry, curve, group):
     """Kernel 6's source against Python integers (affine) and, for G1,
     digit for digit against its plain version (Jacobian); then one
     broadcast scalar. G2 is held against Python integers only in this test
-    (its plain ladder takes 20 s to a minute on a CPU); `chip_smoke.py`
+    (its plain version takes tens of seconds on a CPU); `chip_smoke.py`
     holds G1 and G2 of both curves against the plain version on the
-    card."""
+    card. The compiled window is the one the plain version takes."""
     pts, ks, digits, mul = _scalar_mul_case(curve, group)
+    assert SMS.shape(entry(HC.entry_name(group) + "_shape"),
+                     curve.fq.nl // 2)["window"] \
+        == HC.WINDOW[group]
     vec = TPT.PointVector(curve, group, host=pts)
     P = vec.jacobian("cpu")
     got = HC.run_entry(entry(HC.entry_name(group)), curve, P, digits, group,
@@ -432,6 +458,29 @@ def test_scalar_mul_kernel_matches_its_plain_version(entry, curve, group):
     got = HC.run_entry(entry(HC.entry_name(group)), curve, P, one, group, None)
     assert TPT.PointVector.from_jacobian(curve, group, got).host() == [
         None if pt is None else mul(curve, pt, ks[3]) for pt in pts]
+
+
+@pytest.mark.parametrize("kind", ["0", "1", "r-1", "r", "r+2", "2^bits-1",
+                                  "random"])
+def test_signed_digits_rebuild_the_scalar(kind):
+    """The recoding of kernel 6 and its plain version: for windows of 2 to
+    6 bits over alt_bn128's and bls12-381's scalar bits, nbits // w + 1
+    digits in [-2^(w-1), 2^(w-1)], the top one not negative, that rebuild
+    k as sum d_i 2^(w i)."""
+    for curve in (TCV.ALT_BN128, TCV.BLS12_381):
+        r, nbits = curve.fr.p, curve.fr.bits
+        k = {"0": 0, "1": 1, "r-1": r - 1, "r": r, "r+2": r + 2,
+             "2^bits-1": (1 << nbits) - 1,
+             "random": random.Random(nbits).randrange(1 << nbits)}[kind]
+        digits = torch.tensor([[(k >> (16 * j)) & 0xFFFF]
+                               for j in range(HC.SCALAR_DIGITS)],
+                              dtype=torch.int32)
+        for w in range(2, 7):
+            d = HC.signed_digits(digits, nbits, w)[:, 0].tolist()
+            assert len(d) == nbits // w + 1
+            assert all(-(1 << (w - 1)) <= x <= 1 << (w - 1) for x in d)
+            assert d[-1] >= 0
+            assert sum(x << (w * i) for i, x in enumerate(d)) == k
 
 
 def test_scalar_mul_refuses_other_curves_first():
