@@ -75,7 +75,15 @@ user calls:
   mutated proof rejected;
 - the LPC path's settings with sha2_256 Merkle trees (every level by
   kernel 7): a small proof equal card against CPU, then commit,
-  `proof_eval` twice, `verify_eval`, a changed value rejected.
+  `proof_eval` twice, `verify_eval`, a changed value rejected;
+- the mesh layer (`parallel/`) on a world of one rank a card (NCCL,
+  spawned by `launch.py`, one rank on a one-card machine): the distributed
+  NTT at 2^20 and its inverse, the distributed MSM at 2^16 alt_bn128 G1
+  points, `msm_checkpointed` whole and resumed after half its windows, the
+  distributed precommit at D0 = 2^18 and the query gather of 40 queries,
+  and a 2^16-row Placeholder prove under `mesh_context`, each equal to the
+  single-card function on the same inputs, the proof verified
+  (`entry.mesh_path`).
 
 It fails (non-zero exit, no result line) without a CUDA device, when a kernel
 does not build, launch or agree, when a kernel of a path was never launched
@@ -91,10 +99,13 @@ device ms in each Placeholder prove as a JSON object; then, on a line of its
 own, a JSON object {"kernels": [...]} with every kernel's numbers
 (`launches` is the sum over the whole paths: Groth16 prove, LPC path,
 the Placeholder path over LPC, the Placeholder-over-KZG path, the classic
-path, the ceremony path, the Pasta path and the sha2 LPC path;
+path, the ceremony path, the Pasta path, the sha2 LPC path and the mesh
+path, whose launches are summed over its ranks;
 `launches_<path>` its parts; a row named
 `kernel[field]` is another field's instance, its launches those of that
-field's run; `int_bound_ms` is the bound with the measured integer rate);
+field's run; `int_bound_ms` is the bound with the measured integer rate;
+kernel 7's rows add `issue_bound_ms`, the floor its own SASS instructions
+set at the card's issue rates, `tools/sass_mix.py`);
 then the card's name and power limit; then the result line.
 
 `--kernels-only` stops after the kernel checks, for a quick look at a kernel
@@ -1081,7 +1092,7 @@ def check_sha256(torch, compare, measure):
     del level, msgs, padded
 
     ops = SH.OPS_PER_COMPRESSION
-    measure("sha256_nodes", "crypto3_zk_tpu_torch/csrc/sha256.cu",
+    nodes = measure("sha256_nodes", "crypto3_zk_tpu_torch/csrc/sha256.cu",
             "crypto3_zk_tpu/ops/sha256.py:39", label,
             lambda fs, x: SH.sha256_nodes_hopper(x),
             lambda fs, x: SH.sha256_nodes_plain(x),
@@ -1089,13 +1100,38 @@ def check_sha256(torch, compare, measure):
             bytes_moved=3 * 8 * 4 * n, ops=2 * ops * n,
             per_set_bytes=2 * 8 * 4 * n)
     nb = SH.padded_blocks(SHA256_LEAF_BYTES)
-    measure("sha256", "crypto3_zk_tpu_torch/csrc/sha256.cu",
-            "crypto3_zk_tpu/ops/sha256.py:39", label,
-            lambda fs, x: SH.sha256_blocks_hopper(x),
-            lambda fs, x: SH.sha256_blocks_plain(x),
-            lambda: (leaves()[1],),
-            bytes_moved=(16 * nb + 8) * 4 * n, ops=nb * ops * n,
-            per_set_bytes=16 * nb * 4 * n)
+    blocks = measure("sha256", "crypto3_zk_tpu_torch/csrc/sha256.cu",
+                     "crypto3_zk_tpu/ops/sha256.py:39", label,
+                     lambda fs, x: SH.sha256_blocks_hopper(x),
+                     lambda fs, x: SH.sha256_blocks_plain(x),
+                     lambda: (leaves()[1],),
+                     bytes_moved=(16 * nb + 8) * 4 * n, ops=nb * ops * n,
+                     per_set_bytes=16 * nb * 4 * n)
+    sha256_issue_bounds(torch, nodes, blocks, nb, n)
+
+
+def sha256_issue_bounds(torch, nodes: dict, blocks: dict, nb: int,
+                        n: int) -> None:
+    """Kernel 7's floor from its own instructions: `cuobjdump -sass` of the
+    built library, counted by pipe a message (the block form's loop run
+    once a block, `tools/sass_mix.py`), at the card's SM count and highest
+    SM clock. Adds `sass_per_message`, `issue_bound_ms` and
+    `issue_bound_by` to the two rows; `bound_ms` stays the 67 T/s one."""
+    from crypto3_zk_tpu_torch.tools import sass_mix as SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = SM.max_sm_clock_hz()
+    for row, kernel, trips in ((nodes, "sha256_nodes_kernel", 1),
+                               (blocks, "sha256_blocks_kernel", nb)):
+        per = SM.kernel_mix("sha256.cu", kernel, trips)
+        ms, by = SM.floor_ms(per, n, sms, clock)
+        row.update(sass_per_message=per, issue_bound_ms=ms,
+                   issue_bound_by=by, sm_clock_mhz=clock / 1e6)
+        log(f"  {row['name']}: {per['total']} instructions a message "
+            f"(alu {per['alu']}, fma {per['fma']}, mem {per['mem']}, "
+            f"uniform {per['uniform']}, control {per['control']}; "
+            f"{per['top_opcodes']}), issue-rate floor {ms:.4f} ms by {by} "
+            f"at {sms} SMs x {clock / 1e6:.0f} MHz: {row['ms']:.4f} ms is "
+            f"{100 * ms / row['ms']:.0f} % of it")
 
 
 def launch_counts() -> dict:
@@ -2356,6 +2392,49 @@ def lpc_sha2_path(torch) -> tuple[dict, dict, dict]:
     return counts, per_proof, seconds
 
 
+# ---------------------------------------------------------------------------
+# the mesh path: the mesh layer over every card, one rank a card
+# ---------------------------------------------------------------------------
+
+MESH_KERNELS = ("mont_mul", "ntt_rows", "inv_scans", "mul3", "inv_tail")
+MESH_TIMEOUT = 600           # seconds: rendezvous, each collective, the run
+
+
+def mesh_path(torch) -> tuple[dict, dict]:
+    """`entry.mesh_path` on a world of one rank a card (NCCL, through
+    `launch.py`; the kernels were built here before any rank started): the
+    distributed NTT at 2^20 and its inverse against `ntt_hopper`, the
+    distributed MSM at 2^16 alt_bn128 G1 points and `msm_checkpointed`
+    (whole, then resumed after half its windows) against `MSMBases.run`,
+    the distributed precommit of the LPC fixture's batch at D0 = 2^18 and
+    the query gather of 40 queries against `fri.precommit`, and a
+    Placeholder prove at 2^16 rows under `mesh_context` equal to the
+    single-card proof and verified. Each rank counts the launches of its
+    mesh calls only (not the single-card references); their sum is the
+    path's, and kernels 1, 2, 3, 4, the tail and 5 must each be in it.
+    A rank's failure fails the phase."""
+    from crypto3_zk_tpu_torch.tools.mesh_run import run_mesh_path
+    reset_launch_counts()
+    out = run_mesh_path(torch.cuda.device_count(), MESH_TIMEOUT)
+    counts = out["launches"]
+    if any(launch_counts().values()):
+        raise AssertionError("the mesh path launched kernels outside its "
+                             "ranks")
+    missing = [k for k in MESH_KERNELS if not counts.get(k)]
+    if not sum(counts.get(k, 0) for k in ("poseidon", "poseidon_shared",
+                                          "poseidon_tree")):
+        missing.append("poseidon (kernel 5, any form)")
+    if missing:
+        raise AssertionError(f"the mesh path never launched {missing}")
+    log(f"  mesh path over {out['ranks']} rank(s): {out['wall_s']:.2f} s "
+        f"wall, sharded calls {out['sharded_calls']}")
+    for rank, secs in enumerate(out["seconds_by_rank"]):
+        log(f"  rank {rank}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in secs.items()))
+    return counts, {k: out[k] for k in ("ranks", "wall_s", "sharded_calls",
+                                         "seconds_by_rank")}
+
+
 def goldilocks_agreement(torch) -> dict:
     """`circuit_1` over Goldilocks with Poseidon trees (the reference's
     Goldilocks case): the card's proof equals the CPU plain path's, every
@@ -2619,9 +2698,13 @@ def main(argv=None) -> int:
         (paths["lpc_sha2_path"], paths["lpc_sha2_proof_eval"],
          extra["lpc_sha2"]) = lpc_sha2_path(torch)
         log(f"sha2 LPC path: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        paths["mesh_path"], extra["mesh"] = mesh_path(torch)
+        log(f"mesh path: {time.perf_counter() - t0:.2f} s")
         whole = [k for k in paths
                  if k in ("groth16_prove", "lpc_path", "classic_path",
-                          "ceremony_path", "pasta_path", "lpc_sha2_path")
+                          "ceremony_path", "pasta_path", "lpc_sha2_path",
+                          "mesh_path")
                  or k.endswith("_path") and k.startswith("placeholder")]
         for row in rows:
             name, _, field = row["name"].partition("[")

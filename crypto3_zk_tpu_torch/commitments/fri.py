@@ -20,8 +20,13 @@ device:
   device tensors in one pass (transcript-equivalent: the query loop draws
   exactly one challenge per query and nothing else).
 
-There is one path where the JAX package has a fused and an eager one, and no
-mesh branch. Every proof container holds host ints and bytes only.
+There is one path where the JAX package has a fused and an eager one. Under
+an active `parallel.context.mesh_context` (one rank per device, each running
+the same prove), `precommit` shards its leaf hashing and `proof_eval`
+serves its first-round value gathers from leaf-range-sharded tables
+(`parallel/fri.py`), when the Merkle hash is a field hash and the leaf or
+value count splits over the mesh; the proofs stay equal to the single-device
+ones. Every proof container holds host ints and bytes only.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 
 from ..fields.params import FieldSpec
 from ..ops import limbs as L
+from ..parallel.context import axis_size, get_mesh
 from ..poly.domain import Domain, calculate_domain_set
 from ..poly.polynomial import PolyDFS
 from ..transcript.fiat_shamir import Transcript
@@ -281,6 +287,17 @@ def _leaf_order_indices(domain_size: int, fri_step: int) -> np.ndarray:
 def precommit(polys: list[PolyDFS], D: Domain, fri_step: int,
               params: FRIParams) -> Precommitment:
     fs = params.fs
+    # under an active `parallel.context.mesh_context`, shard the leaf
+    # hashing over the mesh (the same tree; `parallel/fri.py`)
+    ctx = get_mesh()
+    if ctx is not None:
+        mesh, axis = ctx
+        n_leaves = D.n >> fri_step
+        if make_hasher(fs, params.merkle_hash).kind == "field" \
+                and n_leaves % axis_size(mesh, axis) == 0:
+            from ..parallel.fri import distributed_precommit
+            return distributed_precommit(polys, D, fri_step, params, mesh,
+                                         axis)
     polys = [pl.resize(D.n) for pl in polys]
     values = torch.stack([pl.v for pl in polys], dim=0)  # (B, NL, N)
     idx = _leaf_order_indices(D.n, fri_step)            # (leafs, coset)
@@ -421,11 +438,17 @@ def proof_eval(g: dict[int, list[PolyDFS]], combined_Q: PolyDFS,
     need0 = sorted({j for cs in cosets0 for pair in cs for j in pair})
     vals0: dict[int, list[dict[int, int]]] = {}
     if need0:
+        ctx = get_mesh()
         for k, polys in g.items():
             pre = precommitments[k]
-            idx0 = torch.tensor(need0, dtype=torch.int64,
-                                device=pre.values.device)
-            taken = pre.values.index_select(-1, idx0)
+            if ctx is not None and pre.values.shape[-1] \
+                    % axis_size(*ctx) == 0:
+                # serve from leaf-range-sharded tables over the mesh
+                from ..parallel.fri import distributed_query_gather
+                taken = distributed_query_gather(pre.values, need0, *ctx)
+            else:
+                taken = pre.values.index_select(-1, torch.tensor(
+                    need0, dtype=torch.int64, device=pre.values.device))
             got = taken.permute(1, 0, 2)              # (NL, B, K)
             flat = L.decode(fs, got)                  # row-major over (B, K)
             K = len(need0)

@@ -88,14 +88,11 @@ def build_all(verbose: bool = False) -> float:
     if _entry_points:
         return 0.0
     t0 = time.perf_counter()
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    header = headers()
+    build_dir().mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
     for src in SOURCES:
         path = CSRC / src
-        tag = hashlib.sha1(header + path.read_bytes()).hexdigest()[:12]
-        lib = out_dir / f"lib{path.stem}-{tag}.so"
+        lib = library(src)
         libs[src] = lib
         if lib.exists():
             continue
@@ -129,11 +126,16 @@ def build_all(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def library(src: str) -> pathlib.Path:
+    """The path of the current library of `src` (`build_all` makes it)."""
+    tag = hashlib.sha1(headers() + (CSRC / src).read_bytes()).hexdigest()[:12]
+    return build_dir() / f"lib{pathlib.Path(src).stem}-{tag}.so"
+
+
 def build_log(src: str) -> str:
     """What `nvcc` and `ptxas -v` printed when the current library of
     `src` was built (registers, spills), or "" if it was not kept."""
-    tag = hashlib.sha1(headers() + (CSRC / src).read_bytes()).hexdigest()[:12]
-    log = build_dir() / f"lib{pathlib.Path(src).stem}-{tag}.log"
+    log = library(src).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 

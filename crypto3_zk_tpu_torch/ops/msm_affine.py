@@ -468,19 +468,39 @@ class MSMBases:
         signed window digits are cut on the device, and the one transfer is
         each group's largest bucket multiplicity (all 0 only for scalars
         that are all 0)."""
-        fr = self.curve.fr
+        totals = self.window_totals(limbs)
+        if totals is None:
+            return None
+        return _combine_windows(self.curve, self.ops, totals, self.group,
+                                self.c)
+
+    @property
+    def windows(self) -> int:
+        """The number of signed c-bit windows of a scalar."""
+        return n_windows(self.curve.fr.bits, self.c)
+
+    def window_totals(self, limbs: torch.Tensor, lo: int = 0,
+                      hi: int | None = None):
+        """The per-window Jacobian totals T_w = sum_b b*B_b of windows
+        [lo, hi) (default all), coords of shape (NL, hi - lo), of the MSM
+        of `run_limbs`; sum_w 2^(c*w) * T_w over every window is the MSM.
+        The signed digits are cut over all windows (a carry crosses
+        windows), then only [lo, hi) run. None when every digit of the
+        range is 0 (its totals are all the identity)."""
         m = limbs.shape[-1]
         assert m <= self.n and limbs.device.type == self.device.type
+        windows = self.windows
+        hi = windows if hi is None else hi
+        assert 0 <= lo < hi <= windows
         if m == 0:
             return None
         inf = self._inf_pos[self._inf_pos < m]
         if inf.size:
             limbs = limbs.clone()
             limbs[:, torch.from_numpy(inf).to(self.device)] = 0
-        windows = n_windows(fr.bits, self.c)
         sdig = _signed_digits_dev(
-            _window_digits_dev(limbs, self.c, windows), self.c)
-        g_cnt, wg = _window_grouping(windows, m)
+            _window_digits_dev(limbs, self.c, windows), self.c)[lo:hi]
+        g_cnt, wg = _window_grouping(hi - lo, m)
         maxima = _pass_maxima_dev(sdig, g_cnt, wg, self.c).tolist()
         if not any(maxima):
             return None
@@ -491,10 +511,8 @@ class MSMBases:
                        for t in (self.X, self.Y, self.Yneg))
         totals = [_msm_group(self.ops, coords, sdig[g * wg:(g + 1) * wg],
                              k_stars[g], self.c) for g in range(g_cnt)]
-        totals = tuple(_tmap(lambda *a: torch.cat(a, dim=-1), *cs)
-                       for cs in zip(*totals))
-        return _combine_windows(self.curve, self.ops, totals, self.group,
-                                self.c)
+        return tuple(_tmap(lambda *a: torch.cat(a, dim=-1), *cs)
+                     for cs in zip(*totals))
 
 
 def _combine_windows(curve, ops, totals, group: str, c: int):
