@@ -9,13 +9,19 @@ each form of kernel 5, against its plain PyTorch version on the card (exact
 equality: every value is an integer) for the 8- and 12-word fields and for
 the Goldilocks (2 words, p fills its top word) and MNT4 Fr (19 digits,
 R = 2^304) instances, kernel 6 (batched scalar multiplication) on G1
-and G2 of alt_bn128 and bls12-381 at 2^16 points, and kernel 7 (SHA-256)
+and G2 of alt_bn128 and bls12-381 at 2^16 points, kernel 7 (SHA-256)
 in its node and block forms at 2^18 messages (and a sample against
-`hashlib`), then drives the port's main paths through the entry points a
-user calls:
+`hashlib`), and kernel 8 (`ntt_mxu`'s block pass on the int8 tensor
+cores) at M = 32 and M = 1024 and at ragged shapes, timed at M = 1024 over
+2^20 elements beside one `torch._int_mm` of the same digit-plane products,
+then drives the port's main paths through the entry points a user calls:
 
 - `ntt_hopper` past the single four-step's 2^20: against `ntt_plain` at
   2^21 and 2^22, and inverse of forward at 2^24 and 2^26 (bls12-381 Fr);
+- `ntt_mxu` (bls12-381 Fr) at 2^20, 2^24 and 2^26 forward, equal to
+  `ntt_hopper` digit for digit, the inverse at 2^20, inverse of forward at
+  2^26; both forms timed round-robin (3 each, device peak memory), and the
+  block pass alone at M = 32 to 1024 over 2^20 elements;
 - `circuit_1` over Goldilocks with Poseidon trees proved on the card and on
   the CPU (equal proofs and next challenges), and Groth16's witness map
   over MNT4 Fr on both (equal);
@@ -94,13 +100,14 @@ transcripts that disagree), or when a small proof made on the card differs
 from the CPU plain path's.
 
 Output: one line per phase with its seconds; then the times of one whole 2^17
-transform, the transforms past 2^20, the multiply-add rate and kernel 5's
-device ms in each Placeholder prove as a JSON object; then, on a line of its
+transform, the transforms past 2^20, the `ntt_mxu` round robin and block
+passes, the multiply-add rate and kernel 5's device ms in each
+Placeholder prove as a JSON object; then, on a line of its
 own, a JSON object {"kernels": [...]} with every kernel's numbers
 (`launches` is the sum over the whole paths: Groth16 prove, LPC path,
 the Placeholder path over LPC, the Placeholder-over-KZG path, the classic
-path, the ceremony path, the Pasta path, the sha2 LPC path and the mesh
-path, whose launches are summed over its ranks;
+path, the ceremony path, the Pasta path, the sha2 LPC path, the mesh
+path, whose launches are summed over its ranks, and the `ntt_mxu` path;
 `launches_<path>` its parts; a row named
 `kernel[field]` is another field's instance, its launches those of that
 field's run; `int_bound_ms` is the bound with the measured integer rate;
@@ -124,6 +131,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+INT8_OPS_PER_S = 1979e12     # dense int8 tensor-core operations (data sheet;
+                             # a multiply-add counts as two)
 OPS_PER_S = 67e12            # 32-bit operations outside the tensor cores
                              # (the data sheet's float32 rate; a 32-bit
                              # multiply-add counts as two operations)
@@ -478,6 +487,7 @@ def check_kernels(torch):
         check_field(torch, fs, gen, compare, measure)
     check_scalar_mul(torch, gen, compare, measure)
     check_sha256(torch, compare, measure)
+    rows.append(check_mxu_kernel(torch, gen, compare))
     return rows, transforms
 
 
@@ -1139,9 +1149,10 @@ def launch_counts() -> dict:
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
     from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
     from crypto3_zk_tpu_torch.ops import sha256 as SH
     return {**HF.LAUNCHES, **HM.LAUNCHES, **HH.LAUNCHES, **HC.LAUNCHES,
-            **SH.LAUNCHES}
+            **SH.LAUNCHES, **MX.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
@@ -1149,10 +1160,11 @@ def reset_launch_counts() -> None:
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
     from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     from crypto3_zk_tpu_torch.ops import hopper_msm as HM
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
     from crypto3_zk_tpu_torch.ops import sha256 as SH
     for counts in (HF.LAUNCHES, HF.LARGEST, HM.LAUNCHES, HM.ELEMENTS,
                    HH.LAUNCHES, HH.ELEMENTS, HC.LAUNCHES, HC.ELEMENTS,
-                   SH.LAUNCHES, SH.ELEMENTS):
+                   SH.LAUNCHES, SH.ELEMENTS, MX.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -2502,6 +2514,217 @@ def mnt4_witness_map(torch, log_n: int = 12) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the mxu_ntt block kernel (int8 tensor cores) and the ntt_mxu path
+# ---------------------------------------------------------------------------
+
+MXU_LOGS = (20, 24, 26)          # the bench's transform sizes (ntt20/24/26)
+MXU_BLOCK_LOGS = range(5, 10)    # block sides timed over 2^20 elements
+                                 # (M = 2^10 is the kernels row's time)
+MXU_REPS = 3                     # round-robin repetitions of each form
+
+
+def mxu_macs(fs, m: int, elements: int) -> int:
+    """int8 multiply-adds of one block pass: ND^2 M an element."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    return MX._n_digits(fs) ** 2 * m * elements
+
+
+def mxu_floor_macs(fs, m: int, elements: int) -> int:
+    """The fewest 8-bit multiply-adds a block pass can take on the card:
+    the H100's mma takes unsigned 8-bit operands, so both sides cut into
+    8-bit digits, ceil(bits(p) / 8)^2 M an element (32^2 M for
+    bls12-381 Fr, against the kernel's own 37^2 M of 7-bit digits)."""
+    return (-(-fs.p.bit_length() // 8)) ** 2 * m * elements
+
+
+def mxu_pass_bound_ms(fs, m: int, elements: int) -> tuple[float, str]:
+    """The least time of one block pass: its fewest multiply-adds
+    (`mxu_floor_macs`) at the tensor cores' int8 rate, or its bytes (the
+    digits in and out once, the plan's table once) at the memory rate,
+    whichever is larger."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    ops_ms = 2 * mxu_floor_macs(fs, m, elements) / INT8_OPS_PER_S * 1e3
+    bytes_ms = (2 * fs.nl * 4 * elements + MX._n_digits(fs) * m * m) \
+        / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def int_mm_ms(torch, fs, m: int, b: int) -> float:
+    """`library_ms`: the block pass's digit-plane products as ONE
+    `torch._int_mm`, (ND M, M) @ (M, ND B) int8 -> int32 (every W_a x_b at
+    once; the diagonal merge and the sweep are not in it). A yardstick
+    timed here only; the port never calls it."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    nd = MX._n_digits(fs)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(77)
+    a = torch.randint(0, 128, (nd * m, m), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    bt = torch.randint(0, 128, (nd * b, m), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    ms = time_ms(torch, lambda i: torch._int_mm(a, bt.t()), 1, 3,
+                 queued=True)
+    del a, bt
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_mxu_kernel(torch, gen, compare) -> dict:
+    """The block kernel of `ntt_mxu` against `block_ntt_plain` (exact) at
+    M = 32 and M = 1024 and at ragged shapes (M below the mma's depth of
+    32, column counts that are no multiple of a block's 32), both
+    directions; then timed at M = 1024 over 2^20 elements, beside its plain
+    version and one `torch._int_mm` of the same products."""
+    from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+
+    fs = P.BLS12_381_FR
+    err = 0
+    for log_m, b in ((1, 5), (4, 33), (5, 8), (5, 4096 + 5), (10, 37),
+                     (10, 256)):
+        for inverse in (False, True):
+            plan = MX.get_mxu_plan(fs, log_m, inverse)
+            err = max(err, compare(
+                "mxu_ntt", fs, lambda f, x: MX.block_ntt(f, plan, x),
+                lambda f, x: MX.block_ntt_plain(f, plan, x),
+                (rand_field(torch, fs, (1 << log_m, b), gen),)))
+    m, b = 1024, 1024
+    plan = MX.get_mxu_plan(fs, 10, False)
+    sets = [rand_field(torch, fs, (m, b), gen) for _ in range(2)]
+    err = max(err, compare("mxu_ntt", fs, lambda f, x: MX.block_ntt(f, plan, x),
+                           lambda f, x: MX.block_ntt_plain(f, plan, x),
+                           (sets[0],)))
+    ms = time_ms(torch, lambda i: MX.block_ntt(fs, plan, sets[i]), 2, 5,
+                 queued=True)
+    plain_ms = time_ms(torch, lambda i: MX.block_ntt_plain(fs, plan, sets[i]),
+                       2, 1)
+    del sets
+    bound_ms, bound_by = mxu_pass_bound_ms(fs, m, m * b)
+    # the sweep alone at the measured integer rate: NL + 1 rounds of NL
+    # 16-bit products (one multiply-add each) an element
+    sweep_ms = (fs.nl + 1) * fs.nl * m * b / IMAD["per_s"] * 1e3
+    library = int_mm_ms(torch, fs, m, b)
+    row = {"name": "mxu_ntt", "route": "cuda",
+           "source": "crypto3_zk_tpu_torch/csrc/mxu_ntt.cu",
+           "replaces": "crypto3_zk_tpu/ops/mxu_ntt.py:198",
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "int_bound_ms": sweep_ms, "library_ms": library,
+           "field": fs.name, "shape": [[fs.nl, m, b]],
+           "bound_note": "8-bit-digit multiply-adds (32^2 M an element) at "
+                         "1,979 T ops/s; "
+                         "int_bound_ms: the sweep's 16-bit products at the "
+                         "measured multiply-add rate"}
+    log(f"  mxu_ntt block pass M = {m} over {m * b} elements: {ms:.4f} ms, "
+        f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"(sweep at the integer rate {sweep_ms:.4f} ms), one torch._int_mm "
+        f"of the same products {library:.4f} ms")
+    return row
+
+
+def mxu_path(torch, block_1024_ms: float) -> tuple[dict, dict]:
+    """`ntt_mxu` over bls12-381 Fr at 2^20, 2^24 and 2^26 forward, equal
+    to `ntt_hopper` digit for digit (which is held against `ntt_plain`
+    at 2^17 to 2^22 in the other phases), the inverse at 2^20 equal to
+    `ntt_hopper`'s, and inverse of forward at 2^26 equal to the input. The
+    references are computed outside the counted calls; the counted calls
+    must launch the block kernel and kernel 1 (the twiddles and 1/N). Then
+    both forms timed round-robin (device time, 3 repetitions each, with the
+    device's peak memory in the call) and the block pass alone at
+    M = 32 .. 512 over 2^20 elements, beside `block_1024_ms`, the
+    kernels row's time of the M = 1024 pass over as many."""
+    from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.ops import hopper_field as HF
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+
+    fs = P.BLS12_381_FR
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2012)
+    counts = {k: 0 for k in launch_counts()}
+
+    def counted(fn):
+        reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] += v
+        return out
+
+    def equal(what, got, want):
+        err = max_abs_err(torch, got, want)
+        log(f"  {what}: max_abs_err {err}")
+        if err != 0:
+            raise AssertionError(f"{what} differs")
+
+    out = {"round_robin": {}, "block_pass_ms": {}}
+    for log_n in MXU_LOGS:
+        x = rand_field(torch, fs, (1 << log_n,), gen)
+        ref = HF.ntt_hopper(fs, x, False)
+        got = counted(lambda: MX.ntt_mxu(fs, x, False))
+        equal(f"ntt_mxu 2^{log_n} forward against ntt_hopper", got, ref)
+        del ref
+        if log_n == 20:
+            ref = HF.ntt_hopper(fs, x, True)
+            inv = counted(lambda: MX.ntt_mxu(fs, x, True))
+            equal("ntt_mxu 2^20 inverse against ntt_hopper", inv, ref)
+            del ref, inv
+        if log_n == 26:
+            back = counted(lambda: MX.ntt_mxu(fs, got, True))
+            equal("ntt_mxu 2^26 inverse of forward against the input",
+                  back, x)
+            del back
+        del got
+        # round robin: hopper, mxu, mxu, hopper, hopper, mxu (device time
+        # with the stream held, one call each; tables built before)
+        times = {"ntt_hopper": [], "ntt_mxu": []}
+        peaks = {"ntt_hopper": [], "ntt_mxu": []}
+        forms = {"ntt_hopper": lambda i: HF.ntt_hopper(fs, x, False),
+                 "ntt_mxu": lambda i: MX.ntt_mxu(fs, x, False)}
+        order = ["ntt_hopper", "ntt_mxu", "ntt_mxu", "ntt_hopper"] * \
+            ((MXU_REPS + 1) // 2)
+        for name in order[:2 * MXU_REPS]:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            times[name].append(time_ms(torch, forms[name], 1, 1, queued=True))
+            peaks[name].append((torch.cuda.max_memory_allocated() - base)
+                               / 2**20)
+        out["round_robin"][f"2^{log_n}"] = {
+            k: {"ms": times[k], "peak_extra_mib": peaks[k]} for k in times}
+        log(f"  2^{log_n} forward, round robin: " + "; ".join(
+            f"{k} " + ", ".join(f"{t:.3f}" for t in times[k]) + " ms, peak "
+            f"+{max(peaks[k]):.0f} MiB" for k in times))
+        del x
+        if log_n > 20:
+            # the 2^24 and 2^26 twiddle tables hold 1 and 4 GiB a direction
+            HF._four_step_twiddles.cache_clear()
+            torch.cuda.empty_cache()
+    missing = [k for k in ("mxu_ntt", "mont_mul") if not counts[k]]
+    if missing:
+        raise AssertionError(f"the ntt_mxu path never launched {missing}")
+    log(f"  launches of the ntt_mxu path: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+
+    for log_m in [*MXU_BLOCK_LOGS, 10]:
+        m, b = 1 << log_m, (1 << 20) >> log_m
+        if log_m == 10:
+            ms = block_1024_ms
+        else:
+            plan = MX.get_mxu_plan(fs, log_m, False)
+            sets = [rand_field(torch, fs, (m, b), gen) for _ in range(2)]
+            ms = time_ms(torch, lambda i: MX.block_ntt(fs, plan, sets[i]),
+                         2, 5, queued=True)
+            del sets
+        bound_ms, _ = mxu_pass_bound_ms(fs, m, m * b)
+        rate = 2 * mxu_macs(fs, m, m * b) / (ms * 1e-3)
+        out["block_pass_ms"][f"M=2^{log_m}"] = {
+            "ms": ms, "bound_ms": bound_ms, "int8_ops_per_s": rate}
+        log(f"  block pass M = 2^{log_m} over 2^20 elements: {ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms, {rate / 1e12:.1f} T int8 ops/s")
+    return counts, out
+
+
 def check_big_transforms(torch) -> dict:
     """`ntt_hopper` past the single four-step's 2^20: against `ntt_plain`
     at 2^21 and 2^22, forward and inverse; inverse of forward equals the
@@ -2611,6 +2834,11 @@ def main(argv=None) -> int:
         extra["ntt_big"] = check_big_transforms(torch)
         log(f"ntt past 2^20: {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
+        mxu_counts, extra["ntt_mxu"] = mxu_path(
+            torch, next(r["ms"] for r in rows if r["name"] == "mxu_ntt"))
+        log(f"ntt_mxu at 2^20, 2^24 and 2^26, equal to ntt_hopper, timed "
+            f"round robin: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
         field_counts = {"goldilocks": goldilocks_agreement(torch)}
         log(f"Goldilocks circuit_1 proof, card against CPU: equal, "
             f"verified: {time.perf_counter() - t0:.2f} s, launches "
@@ -2629,7 +2857,7 @@ def main(argv=None) -> int:
             dt = msm_oracle_check(curve)
             log(f"msm 2^10 on {curve.name} against its oracle: equal: "
                 f"{dt:.2f} s")
-        paths = {"groth16_prove": main_path(torch)}
+        paths = {"groth16_prove": main_path(torch), "mxu_path": mxu_counts}
         t0 = time.perf_counter()
         small_agreement_lpc(torch)
         log(f"small LPC proof, card against CPU: equal: "
@@ -2704,7 +2932,7 @@ def main(argv=None) -> int:
         whole = [k for k in paths
                  if k in ("groth16_prove", "lpc_path", "classic_path",
                           "ceremony_path", "pasta_path", "lpc_sha2_path",
-                          "mesh_path")
+                          "mesh_path", "mxu_path")
                  or k.endswith("_path") and k.startswith("placeholder")]
         for row in rows:
             name, _, field = row["name"].partition("[")

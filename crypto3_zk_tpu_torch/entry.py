@@ -65,8 +65,10 @@ def _count_dicts() -> list[dict]:
     from .ops import hopper_field as HF
     from .ops import hopper_hash as HH
     from .ops import hopper_msm as HM
+    from .ops import mxu_ntt as MX
     from .ops import sha256 as SH
-    return [HF.LAUNCHES, HM.LAUNCHES, HH.LAUNCHES, HC.LAUNCHES, SH.LAUNCHES]
+    return [HF.LAUNCHES, HM.LAUNCHES, HH.LAUNCHES, HC.LAUNCHES, SH.LAUNCHES,
+            MX.LAUNCHES]
 
 
 class Launches:

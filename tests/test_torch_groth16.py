@@ -183,7 +183,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "crypto3_zk_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
-    # the walk takes in the mesh layer and the last host-only modules
+    # the walk takes in the mesh layer, the last host-only modules and the
+    # digit-plane NTT
     names = {p.relative_to(ROOT / "crypto3_zk_tpu_torch").as_posix()
              for p in files[:-1]}
     assert {f"parallel/{m}.py" for m in ("context", "ntt", "msm", "fri")} \
@@ -192,7 +193,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "metrics", "tvm", "checkpoint", "profiling", "zkllvm")} \
         | {f"arithmetization/{m}.py" for m in (
             "non_linear_combination", "routing", "pairing_gadget")} \
-        | {"entry.py", "launch.py"} <= names
+        | {"entry.py", "launch.py", "ops/mxu_ntt.py"} <= names
     for path in files:
         assert not banned.search(path.read_text()), path
     mods = [".".join(p.relative_to(ROOT).with_suffix("").parts)

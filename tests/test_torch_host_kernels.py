@@ -533,3 +533,46 @@ def test_sha256_kernel_node_form_matches_its_plain_version(entry):
         for i in range(130)]
     assert entry("zk_sha256_nodes")(level.data_ptr(), 0, out.data_ptr(),
                                     None) != 0
+
+
+@pytest.mark.parametrize("log_m,b", [(1, 5), (2, 3), (4, 33), (5, 8),
+                                     (5, 40), (6, 7), (7, 32)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_mxu_block_kernel_matches_its_plain_version(entry, log_m, b,
+                                                    inverse):
+    """The `ntt_mxu` block pass (`csrc/mxu_ntt.cu`): digits cut in shared
+    memory, the planes formed four at a time (the 16 x 8 x 32 tile product
+    by its host definition), folded into lazy columns and swept, against
+    `block_ntt_plain`: M below the mma's depth of 32 (zero-padded), one and
+    several chunks of 32, columns that do not fill a block's 32, edges 0,
+    1 and p - 1."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    fs = TP.BLS12_381_FR
+    plan = MX.get_mxu_plan(fs, log_m, inverse)
+    x = _rand(fs, (1 << log_m, b), 31 * log_m + b)
+    m, cols = MX.block_launch(fs, plan, x)
+    assert (m, cols) == (1 << log_m, b)
+    nw, consts = K.field_consts(fs)
+    out = _filled(x.shape)
+    assert entry("zk_mxu_block")(nw, consts, x.data_ptr(),
+                                 plan.w_digits_dev("cpu").data_ptr(),
+                                 out.data_ptr(), m, b, None) == 0
+    assert torch.equal(out, MX.block_ntt_plain(fs, plan, x))
+
+
+def test_mxu_block_kernel_refuses_other_fields_and_shapes(entry):
+    """The kernel has the 16-digit instance only; the entry refuses a
+    digit count, a column count and a block side it does not take."""
+    fs = TP.BLS12_381_FR
+    gl_nw, gl_consts = K.field_consts(GL)
+    nw, consts = K.field_consts(fs)
+    x = _rand(fs, (64, 4), 3)
+    out = _filled(x.shape)
+    fn = entry("zk_mxu_block")
+    assert fn(gl_nw, gl_consts, x.data_ptr(), x.data_ptr(), out.data_ptr(),
+              64, 4, None) != 0
+    assert fn(nw, consts, x.data_ptr(), x.data_ptr(), out.data_ptr(), 64, 0,
+              None) != 0
+    assert fn(nw, consts, x.data_ptr(), x.data_ptr(), out.data_ptr(), 48, 4,
+              None) != 0
+    assert torch.equal(out, _filled(x.shape))

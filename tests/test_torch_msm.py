@@ -1,7 +1,8 @@
 """The port's MSM modules (`ops.hopper_msm`, `ops.msm_affine`, `ops.msm`,
 `ops.curve`) on the CPU: the inversion kernels' plain versions against the
-TPU kernels in interpret mode, and the MSM's output point against the JAX
-package's host oracle. Everything is an integer: equality is exact."""
+integers the JAX package's test pins the TPU kernels to, and the MSM's
+output point against the JAX package's host oracle. Everything is an
+integer: equality is exact."""
 import random
 
 import numpy as np
@@ -12,7 +13,6 @@ from crypto3_zk_tpu.fields import curves as CV
 from crypto3_zk_tpu.ops import curve as CRV
 from crypto3_zk_tpu.ops import limbs as L
 from crypto3_zk_tpu.ops import msm_affine as MA
-from crypto3_zk_tpu.ops import pallas_msm as PM
 from crypto3_zk_tpu.ops.msm import msm_host
 from crypto3_zk_tpu_torch import convert as CONV
 from crypto3_zk_tpu_torch.fields import curves as TCV
@@ -34,29 +34,56 @@ def _same(ref, got):
 
 
 def test_inversion_kernels_plain_versions_match_pallas_kernels():
-    """Kernels 3 and 4 at C = 4, K = 8. The TPU kernels take x as
-    (NL, C, K) and give f, g as (K, NL, C); the port's layout is (NL, K, C)
-    throughout, so the comparison transposes."""
-    fs, tfs = CURVE.fq, TCURVE.fq
-    rng = np.random.default_rng(3)
+    """Kernels 3 and 4 at C = 4, K = 8, against the Python integers that
+    `tests/test_msm_affine.py::test_pallas_inv_scans_interpret` holds the
+    TPU kernels (`inv_scans_pallas`, `mul3_bcast_pallas`, interpret mode)
+    to at the same C and K, on the same inputs (drawn as that test draws
+    them): exclusive prefix and suffix products along the scan axis, the
+    chunk totals, and f * g * total. The JAX test checks decoded values
+    only, and mul3 at a few (c, k) entries; this one checks every output
+    digit for digit. The two tests together pin the port to the TPU
+    kernels without compiling them twice (an interpret-mode compile costs
+    minutes on a cold cache). The port's layout is (NL, K, C)
+    throughout."""
+    tfs = TCURVE.fq
+    p = tfs.p
+    rng = random.Random(3)
     C, K = 4, 8
-    vals = [int.from_bytes(rng.bytes(40), "little") % (fs.p - 1) + 1
-            for _ in range(C * K)]
-    xr = L.encode(fs, vals).reshape(fs.nl, C, K)
-    f, g, tot = PM.inv_scans_pallas(fs, xr, L.ones_mont(fs, (1,)),
-                                    interpret=True)
-    out = PM.mul3_bcast_pallas(fs, f, g, tot, interpret=True)   # (NL, C, K)
-
-    tx = CONV.limbs_from_numpy(tfs, np.asarray(xr), "cpu") \
+    vals = [rng.randrange(1, p) for _ in range(C * K)]
+    tx = TL.encode(tfs, vals, "cpu").reshape(tfs.nl, C, K) \
         .transpose(1, 2).contiguous()                           # (NL, K, C)
+
+    def col(c):
+        return vals[c * K:(c + 1) * K]
+
+    prefix = [[1] * C for _ in range(K)]
+    suffix = [[1] * C for _ in range(K)]
+    total = [1] * C
+    for c in range(C):
+        acc = 1
+        for k in range(K):
+            prefix[k][c] = acc
+            acc = acc * col(c)[k] % p
+        total[c] = acc
+        acc = 1
+        for k in range(K - 1, -1, -1):
+            suffix[k][c] = acc
+            acc = acc * col(c)[k] % p
+
+    def digits(values, shape):
+        """Canonical Montgomery digits of `values`: the kernels' exact
+        output, digit for digit."""
+        return TL.encode(tfs, values, "cpu").reshape((tfs.nl,) + shape)
+
     for scans in (HM.inv_scans_plain, HM.inv_scans_hopper):
         tf, tg, ttot = scans(tfs, tx)
-        _same(np.transpose(np.asarray(f), (1, 0, 2)), tf)
-        _same(np.transpose(np.asarray(g), (1, 0, 2)), tg)
-        _same(tot, ttot)
+        assert torch.equal(tf, digits(sum(prefix, []), (K, C)))
+        assert torch.equal(tg, digits(sum(suffix, []), (K, C)))
+        assert torch.equal(ttot, digits(total, (C,)))
+    want = [prefix[k][c] * suffix[k][c] * total[c] % p
+            for k in range(K) for c in range(C)]
     for mul3 in (HM.mul3_bcast_plain, HM.mul3_bcast_hopper):
-        _same(np.transpose(np.asarray(out), (0, 2, 1)),
-              mul3(tfs, tf, tg, ttot))
+        assert torch.equal(mul3(tfs, tf, tg, ttot), digits(want, (K, C)))
 
 
 @pytest.mark.parametrize("size", [1, 64, 65, 200, 1024, 1025, 65537])

@@ -52,6 +52,10 @@ RFS, FS = P.BLS12_381_FR, TP.BLS12_381_FR
 RANKS = 4
 E = "crypto3_zk_tpu_torch.entry:"
 SEED = 0xAB                         # circuit_1's values
+# seconds the world may take (rendezvous, each collective, the whole run):
+# about 100 s on a loaded CPU, so a hang fails the file well inside the
+# suite's limit instead of holding a worker for launch.start's 600 s
+WORLD_TIMEOUT = 240
 REF_MODULES = __import__("types").SimpleNamespace(common=RC, lpc=RLPC,
                                                   batched=RB, fri=RFRI)
 
@@ -110,7 +114,8 @@ class World:
         self.cases = _cases()
         self.names = list(self.cases)
         self.handle = launch.start(
-            RANKS, [call for call, _ in self.cases.values()], "cpu")
+            RANKS, [call for call, _ in self.cases.values()], "cpu",
+            timeout=WORLD_TIMEOUT)
 
     def result(self, name):
         """Rank 0's result of a case, after checking that every rank
