@@ -11,17 +11,21 @@ the Goldilocks (2 words, p fills its top word) and MNT4 Fr (19 digits,
 R = 2^304) instances, kernel 6 (batched scalar multiplication) on G1
 and G2 of alt_bn128 and bls12-381 at 2^16 points, kernel 7 (SHA-256)
 in its node and block forms at 2^18 messages (and a sample against
-`hashlib`), and kernel 8 (`ntt_mxu`'s block pass on the int8 tensor
-cores) at M = 32 and M = 1024 and at ragged shapes, timed at M = 1024 over
-2^20 elements beside one `torch._int_mm` of the same digit-plane products,
-then drives the port's main paths through the entry points a user calls:
+`hashlib`), and kernel 8 (a pass of `ntt_mxu`: 8-bit digit products on
+`wgmma`) in every form (the block form at sides 2 to 64 and ragged column
+counts; the first, a middle and the last pass of 2^20 chains of sides 16,
+32 and 64, with the twiddle, packed digits in and out), the middle passes
+timed over 2^20 elements beside their floors and one `torch._int_mm` of
+the same digit products, then drives the port's main paths through the
+entry points a user calls:
 
 - `ntt_hopper` past the single four-step's 2^20: against `ntt_plain` at
   2^21 and 2^22, and inverse of forward at 2^24 and 2^26 (bls12-381 Fr);
 - `ntt_mxu` (bls12-381 Fr) at 2^20, 2^24 and 2^26 forward, equal to
-  `ntt_hopper` digit for digit, the inverse at 2^20, inverse of forward at
-  2^26; both forms timed round-robin (3 each, device peak memory), and the
-  block pass alone at M = 32 to 1024 over 2^20 elements;
+  `ntt_hopper` digit for digit (a forward call launches kernel 8 and
+  nothing else), the inverse at 2^20, inverse of forward at 2^26; both
+  forms timed round-robin (3 each, device peak memory) beside their
+  transform-level floors;
 - `circuit_1` over Goldilocks with Poseidon trees proved on the card and on
   the CPU (equal proofs and next challenges), and Groth16's witness map
   over MNT4 Fr on both (equal);
@@ -2515,54 +2519,74 @@ def mnt4_witness_map(torch, log_n: int = 12) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the mxu_ntt block kernel (int8 tensor cores) and the ntt_mxu path
+# the mxu_ntt pass kernel (8-bit digits on wgmma) and the ntt_mxu path
 # ---------------------------------------------------------------------------
 
 MXU_LOGS = (20, 24, 26)          # the bench's transform sizes (ntt20/24/26)
-MXU_BLOCK_LOGS = range(5, 10)    # block sides timed over 2^20 elements
-                                 # (M = 2^10 is the kernels row's time)
 MXU_REPS = 3                     # round-robin repetitions of each form
+# 2^20 chains whose pass 1 (0-based) is a middle pass of side 2^s: packed
+# in and out, twiddle; their first and last passes are checked too
+MXU_CHAINS = {4: [4, 4, 4, 4, 4], 5: [5, 5, 5, 5], 6: [4, 6, 6, 4]}
+# the block form (int32 in and out, no twiddle): side, columns
+MXU_BLOCKS = ((1, 5), (3, 1000), (4, 33), (5, 8), (5, 4096 + 5), (6, 37),
+              (6, 4096))
 
 
-def mxu_macs(fs, m: int, elements: int) -> int:
-    """int8 multiply-adds of one block pass: ND^2 M an element."""
+def mxu_pass_counts(fs, g) -> dict:
+    """What one pass needs and issues: the fewest 8-bit multiply-adds (32^2
+    M an element, `macs`), those the kernel issues (`issued`: 156 wgmma of
+    64 x 64 x 32 a tile of 64 vectors and 8 outputs a k-step; a side-16
+    pass pads j to 32), the bytes (input and output once, the table and the
+    twiddle tables the pass reads once) and the integer multiply-add
+    instructions of the epilogue an element (nine rounds of 8 word
+    products; for the twiddle one 8-word Montgomery product where
+    `twiddle_split` gives the pass one table, two where it gives two; each
+    word product two instructions)."""
     from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
-    return MX._n_digits(fs) ** 2 * m * elements
+    n = g.n
+    macs = MX.U8_DIGITS ** 2 * g.m * n
+    tm = max(g.m, 16)
+    issued = 156 * 64 * 64 * 32 * (tm // 32 if tm >= 64 else 1) \
+        * g.tiles * (tm // 8)
+    in_b = MX.U8_DIGITS * n if g.in_packed else fs.nl * 4 * n
+    out_b = MX.U8_DIGITS * n if g.out_packed else fs.nl * 4 * n
+    table = MX.get_mxu_plan(fs, g.m.bit_length() - 1, False).table_u8.size
+    tw = tw_products = 0
+    if g.twiddle and g.c > 1:
+        log_n = (g.m * g.c).bit_length() - 1
+        h = MX.twiddle_split(log_n)
+        tw_products = 1 if h == log_n else 2
+        tw = 32 * ((1 << h) + (1 << (log_n - h) if h < log_n else 0))
+    imads = 2 * 9 * 8 + tw_products * 2 * 8 * 16
+    return {"macs": macs, "issued": issued, "bytes": in_b + out_b + table + tw,
+            "imad": imads * n, "twiddle_products": tw_products}
 
 
-def mxu_floor_macs(fs, m: int, elements: int) -> int:
-    """The fewest 8-bit multiply-adds a block pass can take on the card:
-    the H100's mma takes unsigned 8-bit operands, so both sides cut into
-    8-bit digits, ceil(bits(p) / 8)^2 M an element (32^2 M for
-    bls12-381 Fr, against the kernel's own 37^2 M of 7-bit digits)."""
-    return (-(-fs.p.bit_length() // 8)) ** 2 * m * elements
+def mxu_pass_bound(fs, g) -> dict:
+    """The pass's floors (ms): products at the int8 peak, bytes at the
+    memory rate, the epilogue's integer work at the measured multiply-add
+    rate; the bound is the larger of products and bytes."""
+    c = mxu_pass_counts(fs, g)
+    prod = 2 * c["macs"] / INT8_OPS_PER_S * 1e3
+    byt = c["bytes"] / HBM_BYTES_PER_S * 1e3
+    integer = c["imad"] / IMAD["per_s"] * 1e3
+    return {"products_ms": prod, "bytes_ms": byt, "int_ms": integer,
+            "bound_ms": max(prod, byt),
+            "bound_by": "operations" if prod >= byt else "bytes", **c}
 
 
-def mxu_pass_bound_ms(fs, m: int, elements: int) -> tuple[float, str]:
-    """The least time of one block pass: its fewest multiply-adds
-    (`mxu_floor_macs`) at the tensor cores' int8 rate, or its bytes (the
-    digits in and out once, the plan's table once) at the memory rate,
-    whichever is larger."""
+def int_mm_ms(torch, g) -> float:
+    """`library_ms`: the pass's digit products as ONE `torch._int_mm`,
+    (32 M, M) @ (M, 32 V) int8 -> int32: every digit pair of every
+    (output, vector), unmerged (4 GiB of int32 at 2^20 elements). A
+    yardstick timed here only; the port never calls it."""
     from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
-    ops_ms = 2 * mxu_floor_macs(fs, m, elements) / INT8_OPS_PER_S * 1e3
-    bytes_ms = (2 * fs.nl * 4 * elements + MX._n_digits(fs) * m * m) \
-        / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
-        (bytes_ms, "bytes")
-
-
-def int_mm_ms(torch, fs, m: int, b: int) -> float:
-    """`library_ms`: the block pass's digit-plane products as ONE
-    `torch._int_mm`, (ND M, M) @ (M, ND B) int8 -> int32 (every W_a x_b at
-    once; the diagonal merge and the sweep are not in it). A yardstick
-    timed here only; the port never calls it."""
-    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
-    nd = MX._n_digits(fs)
+    d = MX.U8_DIGITS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(77)
-    a = torch.randint(0, 128, (nd * m, m), generator=gen, device="cuda",
+    a = torch.randint(0, 128, (d * g.m, g.m), generator=gen, device="cuda",
                       dtype=torch.int8)
-    bt = torch.randint(0, 128, (nd * b, m), generator=gen, device="cuda",
+    bt = torch.randint(0, 128, (d * g.v, g.m), generator=gen, device="cuda",
                        dtype=torch.int8)
     ms = time_ms(torch, lambda i: torch._int_mm(a, bt.t()), 1, 3,
                  queued=True)
@@ -2571,70 +2595,206 @@ def int_mm_ms(torch, fs, m: int, b: int) -> float:
     return ms
 
 
+def mxu_equal(torch, fs, g, got, want, what: str) -> int:
+    """Kernel output against the plain version's, digit for digit: packed
+    outputs through `unpack_plain` (rows past the vectors of a partial
+    tile are never written) and, where every tile is full, byte for byte."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    if g.out_packed:
+        m2, c2, b2 = g.next_view()
+        err = max_abs_err(
+            torch, MX.unpack_plain(fs, got, m2, c2 * b2, g.lsj2, g.lsk2),
+            MX.unpack_plain(fs, want, m2, c2 * b2, g.lsj2, g.lsk2))
+        if (c2 * b2) % MX.ROWS == 0:
+            err = max(err, max_abs_err(torch, got, want))
+    else:
+        err = max_abs_err(torch, got, want)
+    log(f"  mxu_ntt {what}: max_abs_err {err}")
+    if err != 0:
+        raise AssertionError(f"kernel mxu_ntt disagrees with its plain "
+                             f"version: {what}")
+    return err
+
+
+def mxu_input(torch, fs, g, gen):
+    """Random elements (0, 1 and p - 1 first) in the pass's input form."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    x = rand_field(torch, fs, (g.m, g.v), gen)
+    if g.in_packed:
+        return MX.pack_plain(fs, x, g.lsj, g.lsk)
+    return x.reshape(fs.nl, g.n).contiguous()
+
+
+def mxu_ptxas() -> dict:
+    """`ptxas -v`'s registers and spills of kernel 8 by table side, from
+    the build log."""
+    from crypto3_zk_tpu_torch import kernels as K
+    from crypto3_zk_tpu_torch.tools import mxu_pass_times as MPT
+    return MPT.ptxas_by_side(K.build_log("mxu_ntt.cu"))
+
+
+def mxu_sass() -> dict:
+    """Kernel 8's SASS (`cuobjdump -sass` of the library `kernels.py`
+    built): for each instance, its warpgroup MMAs by form (GMMA), any
+    `mma.sync` form left (IMMA, HMMA), its local-memory traffic (STL, LDL:
+    spills) and the highest register it names. Fails without an unsigned
+    8-bit GMMA, or with an `mma.sync` form."""
+    import re
+
+    from crypto3_zk_tpu_torch import kernels as K
+    from crypto3_zk_tpu_torch.tools import sass_mix as SM
+    out = {}
+    for name, ins in SM.disassemble(str(K.library("mxu_ntt.cu"))).items():
+        if "mxu_pass_kernel" not in name:
+            continue
+        gmma: dict[str, int] = {}
+        row = {"gmma": gmma, "mma_sync": 0, "stl": 0, "ldl": 0, "max_reg": 0}
+        for _, op, args in ins:
+            base = op.split(".")[0]
+            if "GMMA" in base:
+                form = (op + args).split()[0]    # IGMMA.64x64x32.U8.U8
+                gmma[form] = gmma.get(form, 0) + 1
+            row["mma_sync"] += base in ("IMMA", "HMMA")
+            row["stl"] += base == "STL"
+            row["ldl"] += base == "LDL"
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", args)]
+            row["max_reg"] = max([row["max_reg"], *regs])
+        out[name] = row
+        if not any("U8" in op for op in gmma) or row["mma_sync"]:
+            raise AssertionError(f"kernel 8's SASS ({name}): no unsigned "
+                                 f"8-bit warpgroup MMA, or an mma.sync form: "
+                                 f"{row}")
+    if not out:
+        raise AssertionError("kernel 8's SASS: no mxu_pass_kernel")
+    return out
+
+
 def check_mxu_kernel(torch, gen, compare) -> dict:
-    """The block kernel of `ntt_mxu` against `block_ntt_plain` (exact) at
-    M = 32 and M = 1024 and at ragged shapes (M below the mma's depth of
-    32, column counts that are no multiple of a block's 32), both
-    directions; then timed at M = 1024 over 2^20 elements, beside its plain
-    version and one `torch._int_mm` of the same products."""
+    """Kernel 8 against `pass_plain` (exact) in every form: the block form
+    (int32 in and out, no twiddle) at sides 2 to 64 and ragged column
+    counts, both directions; the first (int32 in, packed out), a middle
+    (packed in and out) and the last (packed in, int32 out) pass of 2^20
+    chains with sides 16, 32 and 64, both directions; then each middle
+    pass timed over 2^20 elements beside its plain version, its floors and
+    one `torch._int_mm` of its digit products."""
     from crypto3_zk_tpu_torch.fields import params as P
     from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
 
     fs = P.BLS12_381_FR
     err = 0
-    for log_m, b in ((1, 5), (4, 33), (5, 8), (5, 4096 + 5), (10, 37),
-                     (10, 256)):
+    for log_m, b in MXU_BLOCKS:
         for inverse in (False, True):
             plan = MX.get_mxu_plan(fs, log_m, inverse)
             err = max(err, compare(
                 "mxu_ntt", fs, lambda f, x: MX.block_ntt(f, plan, x),
                 lambda f, x: MX.block_ntt_plain(f, plan, x),
                 (rand_field(torch, fs, (1 << log_m, b), gen),)))
-    m, b = 1024, 1024
-    plan = MX.get_mxu_plan(fs, 10, False)
-    sets = [rand_field(torch, fs, (m, b), gen) for _ in range(2)]
-    err = max(err, compare("mxu_ntt", fs, lambda f, x: MX.block_ntt(f, plan, x),
-                           lambda f, x: MX.block_ntt_plain(f, plan, x),
-                           (sets[0],)))
-    ms = time_ms(torch, lambda i: MX.block_ntt(fs, plan, sets[i]), 2, 5,
-                 queued=True)
-    plain_ms = time_ms(torch, lambda i: MX.block_ntt_plain(fs, plan, sets[i]),
-                       2, 1)
-    del sets
-    bound_ms, bound_by = mxu_pass_bound_ms(fs, m, m * b)
-    # the sweep alone at the measured integer rate: NL + 1 rounds of NL
-    # 16-bit products (one multiply-add each) an element
-    sweep_ms = (fs.nl + 1) * fs.nl * m * b / IMAD["per_s"] * 1e3
-    library = int_mm_ms(torch, fs, m, b)
-    row = {"name": "mxu_ntt", "route": "cuda",
-           "source": "crypto3_zk_tpu_torch/csrc/mxu_ntt.cu",
-           "replaces": "crypto3_zk_tpu/ops/mxu_ntt.py:198",
-           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "int_bound_ms": sweep_ms, "library_ms": library,
-           "field": fs.name, "shape": [[fs.nl, m, b]],
-           "bound_note": "8-bit-digit multiply-adds (32^2 M an element) at "
-                         "1,979 T ops/s; "
-                         "int_bound_ms: the sweep's 16-bit products at the "
-                         "measured multiply-add rate"}
-    log(f"  mxu_ntt block pass M = {m} over {m * b} elements: {ms:.4f} ms, "
-        f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"(sweep at the integer rate {sweep_ms:.4f} ms), one torch._int_mm "
-        f"of the same products {library:.4f} ms")
-    return row
+    passes = {}
+    for s, sides in MXU_CHAINS.items():
+        geoms = MX.chain_geoms(sides)
+        for p in (0, 1, len(geoms) - 1):
+            g = geoms[p]
+            for inverse in (False, True):
+                x = mxu_input(torch, fs, g, gen)
+                got = MX.mxu_pass(fs, g, x, inverse)
+                torch.cuda.synchronize()
+                want = MX.pass_plain(fs, g, x, inverse)
+                err = max(err, mxu_equal(
+                    torch, fs, g, got, want,
+                    f"pass {p} of chain {sides} (side {g.m}, in "
+                    f"{'packed' if g.in_packed else 'int32'}, out "
+                    f"{'packed' if g.out_packed else 'int32'}, twiddle "
+                    f"{g.twiddle}, {'inverse' if inverse else 'forward'})"))
+                del x, got, want
+        g = geoms[1]
+        sets = [mxu_input(torch, fs, g, gen) for _ in range(2)]
+        ms = time_ms(torch, lambda i: MX.mxu_pass(fs, g, sets[i], False), 2,
+                     5, queued=True)
+        plain_ms = time_ms(torch, lambda i: MX.pass_plain(fs, g, sets[i],
+                                                          False), 2, 1)
+        del sets
+        torch.cuda.empty_cache()
+        bnd = mxu_pass_bound(fs, g)
+        library = int_mm_ms(torch, g)
+        chain_ms = []
+        if s == 5:
+            # every pass of the 2^20 chain: the first reads int32 digits,
+            # the last writes them and has no twiddle
+            for gp in geoms:
+                sets = [mxu_input(torch, fs, gp, gen) for _ in range(2)]
+                chain_ms.append(time_ms(
+                    torch, lambda i: MX.mxu_pass(fs, gp, sets[i], False), 2,
+                    5, queued=True))
+                del sets
+            log(f"  mxu_ntt passes of the 2^20 chain {sides}: "
+                + ", ".join(f"{t:.4f}" for t in chain_ms) + " ms (bounds "
+                + ", ".join(f"{mxu_pass_bound(fs, gp)['bound_ms']:.4f}"
+                            for gp in geoms) + "; integer work "
+                + ", ".join(f"{mxu_pass_bound(fs, gp)['int_ms']:.4f}"
+                            for gp in geoms) + ")")
+        useful = 2 * bnd["macs"] / (ms * 1e-3)
+        issued = 2 * bnd["issued"] / (ms * 1e-3)
+        passes[1 << s] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": library, **bnd,
+                          "int8_share": useful / INT8_OPS_PER_S,
+                          "issued_share": issued / INT8_OPS_PER_S,
+                          "chain_pass_ms": chain_ms}
+        log(f"  mxu_ntt middle pass of side {1 << s} over 2^20 elements: "
+            f"{ms:.4f} ms, plain {plain_ms:.2f} ms; floors: products "
+            f"{bnd['products_ms']:.4f} ms, bytes {bnd['bytes_ms']:.4f} ms, "
+            f"integer work {bnd['int_ms']:.4f} ms ({bnd['twiddle_products']} "
+            f"twiddle products); bound {bnd['bound_ms']:.4f}"
+            f" ms by {bnd['bound_by']} ({100 * bnd['bound_ms'] / ms:.1f} %); "
+            f"{useful / 1e12:.1f} T int8 ops/s of the needed products "
+            f"({100 * useful / INT8_OPS_PER_S:.1f} % of the peak; issued "
+            f"{100 * issued / INT8_OPS_PER_S:.1f} %); one torch._int_mm of "
+            f"the same digit products {library:.4f} ms")
+    ptxas = mxu_ptxas()
+    log(f"  mxu_ntt ptxas: {ptxas}")
+    sass = mxu_sass()
+    for name, row in sass.items():
+        log(f"  mxu_ntt SASS {name}: {row}")
+    main = passes[32]
+    return {"name": "mxu_ntt", "route": "cuda",
+            "source": "crypto3_zk_tpu_torch/csrc/mxu_ntt.cu",
+            "replaces": "crypto3_zk_tpu/ops/mxu_ntt.py:198",
+            "max_abs_err": err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "int_bound_ms": main["int_ms"],
+            "library_ms": main["library_ms"], "field": fs.name,
+            "shape": "a middle pass of side 32 over 2^20 elements (packed "
+                     "in and out, twiddle)",
+            "pass_by_side": passes, "ptxas": ptxas, "sass": sass,
+            "bound_note": "32^2 M 8-bit multiply-adds an element at 1,979 T "
+                          "int8 ops/s, or 32 bytes an element in and out; "
+                          "int_bound_ms: the epilogue's multiply-adds at the "
+                          "measured rate"}
 
 
-def mxu_path(torch, block_1024_ms: float) -> tuple[dict, dict]:
+def ntt_floors(fs, log_n: int) -> dict:
+    """Transform-level floors (ms): `ntt_mxu`'s, the sum of its passes'
+    bounds (larger of products and bytes) under `plan_sides`; and
+    `ntt_hopper`'s butterflies alone, N/2 log N Montgomery products at the
+    measured multiply-add rate (two instructions a word product)."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    geoms = MX.chain_geoms(MX.plan_sides(log_n))
+    mxu = sum(mxu_pass_bound(fs, g)["bound_ms"] for g in geoms)
+    mxu_int = sum(mxu_pass_bound(fs, g)["int_ms"] for g in geoms)
+    hopper = (1 << (log_n - 1)) * log_n * mont_ops(fs.nl) / IMAD["per_s"] \
+        * 1e3
+    return {"ntt_mxu": mxu, "ntt_mxu_int": mxu_int, "ntt_hopper": hopper,
+            "sides": MX.plan_sides(log_n)}
+
+
+def mxu_path(torch) -> tuple[dict, dict]:
     """`ntt_mxu` over bls12-381 Fr at 2^20, 2^24 and 2^26 forward, equal
     to `ntt_hopper` digit for digit (which is held against `ntt_plain`
     at 2^17 to 2^22 in the other phases), the inverse at 2^20 equal to
     `ntt_hopper`'s, and inverse of forward at 2^26 equal to the input. The
-    references are computed outside the counted calls; the counted calls
-    must launch the block kernel and kernel 1 (the twiddles and 1/N). Then
-    both forms timed round-robin (device time, 3 repetitions each, with the
-    device's peak memory in the call) and the block pass alone at
-    M = 32 .. 512 over 2^20 elements, beside `block_1024_ms`, the
-    kernels row's time of the M = 1024 pass over as many."""
+    references are computed outside the counted calls; a forward call must
+    launch kernel 8 and nothing else, an inverse kernel 8 and kernel 1 (the
+    1/N). Then both forms timed round-robin (device time, 3 repetitions
+    each, with the device's peak memory in the call) beside their floors."""
     from crypto3_zk_tpu_torch.fields import params as P
     from crypto3_zk_tpu_torch.ops import hopper_field as HF
     from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
@@ -2644,11 +2804,15 @@ def mxu_path(torch, block_1024_ms: float) -> tuple[dict, dict]:
     gen.manual_seed(2012)
     counts = {k: 0 for k in launch_counts()}
 
-    def counted(fn):
+    def counted(fn, forward):
         reset_launch_counts()
         out = fn()
         torch.cuda.synchronize()
-        for k, v in launch_counts().items():
+        now = launch_counts()
+        other = {k: v for k, v in now.items() if v and k != "mxu_ntt"}
+        if forward and other:
+            raise AssertionError(f"a forward ntt_mxu launched {other}")
+        for k, v in now.items():
             counts[k] += v
         return out
 
@@ -2658,20 +2822,21 @@ def mxu_path(torch, block_1024_ms: float) -> tuple[dict, dict]:
         if err != 0:
             raise AssertionError(f"{what} differs")
 
-    out = {"round_robin": {}, "block_pass_ms": {}}
+    out = {"round_robin": {}, "floors": {}}
     for log_n in MXU_LOGS:
         x = rand_field(torch, fs, (1 << log_n,), gen)
         ref = HF.ntt_hopper(fs, x, False)
-        got = counted(lambda: MX.ntt_mxu(fs, x, False))
-        equal(f"ntt_mxu 2^{log_n} forward against ntt_hopper", got, ref)
+        got = counted(lambda: MX.ntt_mxu(fs, x, False), True)
+        equal(f"ntt_mxu 2^{log_n} forward (sides "
+              f"{MX.plan_sides(log_n)}) against ntt_hopper", got, ref)
         del ref
         if log_n == 20:
             ref = HF.ntt_hopper(fs, x, True)
-            inv = counted(lambda: MX.ntt_mxu(fs, x, True))
+            inv = counted(lambda: MX.ntt_mxu(fs, x, True), False)
             equal("ntt_mxu 2^20 inverse against ntt_hopper", inv, ref)
             del ref, inv
         if log_n == 26:
-            back = counted(lambda: MX.ntt_mxu(fs, got, True))
+            back = counted(lambda: MX.ntt_mxu(fs, got, True), False)
             equal("ntt_mxu 2^26 inverse of forward against the input",
                   back, x)
             del back
@@ -2690,38 +2855,27 @@ def mxu_path(torch, block_1024_ms: float) -> tuple[dict, dict]:
             times[name].append(time_ms(torch, forms[name], 1, 1, queued=True))
             peaks[name].append((torch.cuda.max_memory_allocated() - base)
                                / 2**20)
+        floors = ntt_floors(fs, log_n)
         out["round_robin"][f"2^{log_n}"] = {
             k: {"ms": times[k], "peak_extra_mib": peaks[k]} for k in times}
+        out["floors"][f"2^{log_n}"] = floors
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
         log(f"  2^{log_n} forward, round robin: " + "; ".join(
             f"{k} " + ", ".join(f"{t:.3f}" for t in times[k]) + " ms, peak "
-            f"+{max(peaks[k]):.0f} MiB" for k in times))
+            f"+{max(peaks[k]):.0f} MiB" for k in times)
+            + f"; medians {med['ntt_mxu']:.3f} / {med['ntt_hopper']:.3f} ms "
+            f"against floors {floors['ntt_mxu']:.3f} (integer work "
+            f"{floors['ntt_mxu_int']:.3f}) / {floors['ntt_hopper']:.3f} ms")
         del x
         if log_n > 20:
             # the 2^24 and 2^26 twiddle tables hold 1 and 4 GiB a direction
             HF._four_step_twiddles.cache_clear()
             torch.cuda.empty_cache()
-    missing = [k for k in ("mxu_ntt", "mont_mul") if not counts[k]]
-    if missing:
-        raise AssertionError(f"the ntt_mxu path never launched {missing}")
+    if not counts["mxu_ntt"] or not counts["mont_mul"]:
+        raise AssertionError("the ntt_mxu path never launched kernel 8 or "
+                             "the inverse's kernel 1")
     log(f"  launches of the ntt_mxu path: "
         f"{ {k: v for k, v in counts.items() if v} }")
-
-    for log_m in [*MXU_BLOCK_LOGS, 10]:
-        m, b = 1 << log_m, (1 << 20) >> log_m
-        if log_m == 10:
-            ms = block_1024_ms
-        else:
-            plan = MX.get_mxu_plan(fs, log_m, False)
-            sets = [rand_field(torch, fs, (m, b), gen) for _ in range(2)]
-            ms = time_ms(torch, lambda i: MX.block_ntt(fs, plan, sets[i]),
-                         2, 5, queued=True)
-            del sets
-        bound_ms, _ = mxu_pass_bound_ms(fs, m, m * b)
-        rate = 2 * mxu_macs(fs, m, m * b) / (ms * 1e-3)
-        out["block_pass_ms"][f"M=2^{log_m}"] = {
-            "ms": ms, "bound_ms": bound_ms, "int8_ops_per_s": rate}
-        log(f"  block pass M = 2^{log_m} over 2^20 elements: {ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms, {rate / 1e12:.1f} T int8 ops/s")
     return counts, out
 
 
@@ -2834,8 +2988,7 @@ def main(argv=None) -> int:
         extra["ntt_big"] = check_big_transforms(torch)
         log(f"ntt past 2^20: {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()
-        mxu_counts, extra["ntt_mxu"] = mxu_path(
-            torch, next(r["ms"] for r in rows if r["name"] == "mxu_ntt"))
+        mxu_counts, extra["ntt_mxu"] = mxu_path(torch)
         log(f"ntt_mxu at 2^20, 2^24 and 2^26, equal to ntt_hopper, timed "
             f"round robin: {time.perf_counter() - t0:.2f} s")
         t0 = time.perf_counter()

@@ -50,7 +50,7 @@ SOURCES: dict[str, dict[str, list]] = {
                          "zk_scalar_mul_g2_shape": [_I, _P]},
     "sha256.cu": {"zk_sha256_blocks": [_P, _LL, _I, _P, _P],
                   "zk_sha256_nodes": [_P, _LL, _P, _P]},
-    "mxu_ntt.cu": {"zk_mxu_block": [_I, _P, _P, _P, _P, _I, _LL, _P]},
+    "mxu_ntt.cu": {"zk_mxu_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P]},
     # a measurement loop, no kernel of a path (`chip_smoke.py` reads the
     # card's integer multiply-add rate with it)
     "rate.cu": {"zk_imad_rate": [_P, _I, _I, _I, _P]},

@@ -536,43 +536,134 @@ def test_sha256_kernel_node_form_matches_its_plain_version(entry):
 
 
 @pytest.mark.parametrize("log_m,b", [(1, 5), (2, 3), (4, 33), (5, 8),
-                                     (5, 40), (6, 7), (7, 32)])
+                                     (5, 40), (6, 7), (3, 64)])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_mxu_block_kernel_matches_its_plain_version(entry, log_m, b,
                                                     inverse):
-    """The `ntt_mxu` block pass (`csrc/mxu_ntt.cu`): digits cut in shared
-    memory, the planes formed four at a time (the 16 x 8 x 32 tile product
-    by its host definition), folded into lazy columns and swept, against
-    `block_ntt_plain`: M below the mma's depth of 32 (zero-padded), one and
-    several chunks of 32, columns that do not fill a block's 32, edges 0,
-    1 and p - 1."""
+    """Kernel 8 (`csrc/mxu_ntt.cu`) in its block form, int32 in and out
+    and no twiddle: the int32 digits cut into the tile by the producer
+    warpgroup, the 8-bit digit products by the host definition of the
+    `wgmma` tile product through the kernel's descriptors, the plane merge,
+    the nine word rounds and the stores, against `block_ntt_plain`: sides
+    below 16 (the side-16 table with zero rows and columns), one and two
+    k-steps (side 64), column counts that do not fill a tile of 64 and
+    tiles walked by a persistent block, edges 0, 1 and p - 1."""
     from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
     fs = TP.BLS12_381_FR
     plan = MX.get_mxu_plan(fs, log_m, inverse)
     x = _rand(fs, (1 << log_m, b), 31 * log_m + b)
-    m, cols = MX.block_launch(fs, plan, x)
-    assert (m, cols) == (1 << log_m, b)
-    nw, consts = K.field_consts(fs)
-    out = _filled(x.shape)
-    assert entry("zk_mxu_block")(nw, consts, x.data_ptr(),
-                                 plan.w_digits_dev("cpu").data_ptr(),
-                                 out.data_ptr(), m, b, None) == 0
-    assert torch.equal(out, MX.block_ntt_plain(fs, plan, x))
+    assert MX.block_launch(fs, plan, x) == (1 << log_m, b)
+    g = MX.PassGeom(m=1 << log_m, c=1, b=b)
+    out, args = MX.pass_launch(fs, g, x.reshape(fs.nl, -1), inverse, 4)
+    out.fill_(-7)
+    assert entry("zk_mxu_pass")(*args, None) == 0
+    assert torch.equal(out.reshape(x.shape), MX.block_ntt_plain(fs, plan, x))
 
 
-def test_mxu_block_kernel_refuses_other_fields_and_shapes(entry):
+@pytest.mark.parametrize("sides,inverse", [
+    ([4, 4, 4], False), ([4, 4, 4], True), ([5, 5], False),
+    ([4, 6, 4], True), ([6, 5, 1], False), ([5, 4, 3], True)])
+def test_mxu_pass_kernel_chain_matches_its_plain_version(entry, sides,
+                                                         inverse):
+    """Every pass of a transform's chain, kernel 8 against `pass_plain`:
+    int32 in and packed out with the twiddle (the first pass), packed in
+    and out (a middle one), packed in and int32 out without it (the last),
+    the tile lanes of the packed layout, partial tiles (2^10: 32 vectors a
+    pass), an int32 hand-over to a side below 16, sides 16, 32 and 64; the
+    chain's output is the transform. Packed outputs are compared through
+    `unpack_plain` (rows past the vectors of a partial tile are never
+    written), and byte for byte where the tiles are full."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    from crypto3_zk_tpu_torch.ops import ntt as TN
+    fs = TP.BLS12_381_FR
+    n = 1 << sum(sides)
+    x = _rand(fs, (n,), 7 * n + len(sides))
+    y = x
+    geoms = MX.chain_geoms(sides)
+    for g in geoms:
+        out, args = MX.pass_launch(fs, g, y, inverse, 4)
+        assert entry("zk_mxu_pass")(*args, None) == 0
+        want = MX.pass_plain(fs, g, y, inverse)
+        if g.out_packed:
+            m2, c2, b2 = g.next_view()
+            assert torch.equal(
+                MX.unpack_plain(fs, out, m2, c2 * b2, g.lsj2, g.lsk2),
+                MX.unpack_plain(fs, want, m2, c2 * b2, g.lsj2, g.lsk2))
+            if c2 * b2 % MX.ROWS == 0:
+                assert torch.equal(out, want)
+        else:
+            assert torch.equal(out, want)
+        y = out
+    assert [g.twiddle for g in geoms] == [True] * (len(sides) - 1) + [False]
+    scale = TL.const_mont(fs, pow(n, -1, fs.p), (1,), "cpu")
+    want = TN.ntt(fs, x, inverse=inverse)
+    assert torch.equal(TL.mont_mul(fs, y, scale) if inverse else y, want)
+
+
+@pytest.mark.parametrize("sides,one_max", [([4, 4, 4], 4), ([4, 4, 4], 8),
+                                           ([5, 4, 4], 6), ([4, 5, 4], 4)])
+def test_mxu_pass_kernel_two_twiddle_tables_give_the_same_digits(
+        entry, monkeypatch, sides, one_max):
+    """Above 2^TW_ONE_MAX_LOG points a pass's twiddle is the product of two
+    small tables, lo[e mod 2^h] hi[e >> h]; lowered here, so that the
+    kernel's second product runs at test sizes, in the first and middle
+    passes, against `pass_plain`."""
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
+    fs = TP.BLS12_381_FR
+    monkeypatch.setattr(MX, "TW_ONE_MAX_LOG", one_max)
+    y = _rand(fs, (1 << sum(sides),), 99 + one_max)
+    two = 0
+    for g in MX.chain_geoms(sides):
+        out, args = MX.pass_launch(fs, g, y, False, 3)
+        one = args[2][MX.GEOM_FIELDS.index("tw_one")]
+        two += g.twiddle and not one
+        assert one == int(g.twiddle and
+                          (g.m * g.c).bit_length() - 1 <= one_max)
+        assert entry("zk_mxu_pass")(*args, None) == 0
+        want = MX.pass_plain(fs, g, y, False)
+        assert torch.equal(out, want)
+        y = want
+    assert two >= 1
+
+
+def test_mxu_pass_kernel_refuses_what_it_does_not_take(entry):
     """The kernel has the 16-digit instance only; the entry refuses a
-    digit count, a column count and a block side it does not take."""
+    digit count, no columns, a side that is no power of two or above 64,
+    packed digits at a side below 16, a next side that does not divide the
+    vectors' slow part, a tile count that disagrees, tile lanes outside
+    the vectors, and a side-64 grid that is no multiple of 4; nothing is
+    written then."""
+    import ctypes
+
+    from crypto3_zk_tpu_torch.ops import mxu_ntt as MX
     fs = TP.BLS12_381_FR
     gl_nw, gl_consts = K.field_consts(GL)
-    nw, consts = K.field_consts(fs)
-    x = _rand(fs, (64, 4), 3)
-    out = _filled(x.shape)
-    fn = entry("zk_mxu_block")
-    assert fn(gl_nw, gl_consts, x.data_ptr(), x.data_ptr(), out.data_ptr(),
-              64, 4, None) != 0
-    assert fn(nw, consts, x.data_ptr(), x.data_ptr(), out.data_ptr(), 64, 0,
-              None) != 0
-    assert fn(nw, consts, x.data_ptr(), x.data_ptr(), out.data_ptr(), 48, 4,
-              None) != 0
-    assert torch.equal(out, _filled(x.shape))
+    g = MX.PassGeom(m=16, c=64, b=1, lsj=2, lsk=0, out_packed=True,
+                    twiddle=True, m2=16)
+    x = _rand(fs, (16 * 64,), 3)
+    out, args = MX.pass_launch(fs, g, x, False, 2)
+    fn = entry("zk_mxu_pass")
+    geom = list(args[2])
+    out.fill_(7)
+
+    def refused(**change):
+        vals = dict(zip(MX.GEOM_FIELDS, geom))
+        vals.update(change)
+        arr = (ctypes.c_longlong * len(geom))(*[vals[k] for k in
+                                                MX.GEOM_FIELDS])
+        return fn(args[0], args[1], arr, *args[3:], None) != 0
+
+    assert fn(gl_nw, gl_consts, args[2], *args[3:], None) != 0
+    assert refused(c=0, tiles=0)
+    assert refused(m=48)
+    assert refused(m=128)
+    assert refused(m=8, in_packed=1)
+    assert refused(m2=8)
+    assert refused(m2=128)
+    assert refused(tiles=17)
+    assert refused(lsj=12)
+    assert refused(m=64, blocks=3)
+    assert refused(staged=2)                          # int32 runs, packed out
+    assert refused(staged=1, m=8, m2=16)
+    assert torch.equal(out, torch.full_like(out, 7))
+    assert fn(*args, None) == 0

@@ -6,6 +6,7 @@ them (n = 256, and n = 2^12 with `log_block=1`), so the compile cache
 serves both files; the block-level cases reuse the block shapes those
 transforms compile. The kernel itself runs on the CPU through its host
 build in `tests/test_torch_host_kernels.py`."""
+import dataclasses
 import functools
 
 import jax
@@ -156,6 +157,151 @@ def test_ntt_mxu_equals_the_port_ntt_and_round_trips():
                        TN.ntt(TFS, x, inverse=True))
 
 
+@pytest.mark.parametrize("log_n", [6, 7, 8, 9, 10, 11, 12])
+def test_ntt_mxu_chain_equals_the_reference(log_n):
+    """`ntt_mxu` under the port's split (`plan_sides`: one pass up to 2^6,
+    2^4 x 2^3 at 2^7, then mixes of sides 16, 32 and 64) against the JAX
+    package's `ntt_mxu` (its own split), forward and inverse, exact."""
+    _, arr, x = _pair((1 << log_n,), 40 + log_n)
+    sides = MX.plan_sides(log_n)
+    assert sum(sides) == log_n and all(1 <= s <= 6 for s in sides)
+    fwd = MX.ntt_mxu(TFS, x)
+    ref = RMX.ntt_mxu(FS, jnp.asarray(arr))
+    _same(ref, fwd)
+    _same(RMX.ntt_mxu(FS, ref, inverse=True),
+          MX.ntt_mxu(TFS, fwd, inverse=True))
+
+
+def test_plan_sides_and_log_block():
+    """Passes of side 32, a remainder of one bit taken by one pass of 64
+    and one of 2 to 4 bits by passes of 16; `log_block` keeps its JAX
+    meaning, the side of the top split's block (the last factor)."""
+    assert MX.plan_sides(20) == [5, 5, 5, 5]
+    assert MX.plan_sides(21) == [6, 5, 5, 5]
+    assert MX.plan_sides(22) == [5, 5, 4, 4, 4]
+    assert MX.plan_sides(23) == [5, 5, 5, 4, 4]
+    assert MX.plan_sides(24) == [5, 5, 5, 5, 4]
+    assert MX.plan_sides(26) == [6, 5, 5, 5, 5]
+    for log_n in range(8, 31):
+        sides = MX.plan_sides(log_n)
+        assert sum(sides) == log_n and set(sides) <= {4, 5, 6}
+        assert sides.count(6) <= 1 and sides.count(4) <= 3
+    assert MX.plan_sides(12, log_block=1) == MX.plan_sides(11) + [1]
+    assert MX.plan_sides(6) == [6] and MX.plan_sides(7) == [4, 3]
+    geoms = MX.chain_geoms([5, 5, 5, 5])
+    assert [(g.m, g.c, g.b) for g in geoms] == [
+        (32, 1 << 15, 1), (32, 1 << 10, 32), (32, 32, 1 << 10),
+        (32, 1, 1 << 15)]
+    assert [(g.in_packed, g.out_packed, g.twiddle) for g in geoms] == [
+        (False, True, True), (True, True, True), (True, True, True),
+        (True, False, False)]
+    # the J lanes of a pass are the next pass's transform index, its K
+    # lanes the outputs of the pass before
+    assert [(g.lsj, g.lsk) for g in geoms] == [(10, 0), (10, 0), (10, 5),
+                                               (0, 10)]
+
+
+def test_smoke_counts_the_twiddle_work_each_pass_runs(monkeypatch):
+    """`chip_smoke.py`'s floors of a pass count the twiddle as the kernel
+    runs it: at 2^20 the first and middle passes of side 32 (n = 2^20 and
+    2^15 <= 2^TW_ONE_MAX_LOG) read one table of n entries and do one 8-word
+    Montgomery product (9 x 8 + 64 + 64 word products, 400 instructions an
+    element), the last none (144); lowering `TW_ONE_MAX_LOG` gives them two
+    tables and two products (656)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke as CS
+    first, middle, _, last = MX.chain_geoms([5, 5, 5, 5])
+    n = 1 << 20
+    table = MX.get_mxu_plan(TFS, 5, False).table_u8.size
+    want = {id(first): (1, 400, 96 * n + 32 * 2 ** 20),
+            id(middle): (1, 400, 64 * n + 32 * 2 ** 15),
+            id(last): (0, 144, 32 * n + 64 * n)}
+    for g in (first, middle, last):
+        c = CS.mxu_pass_counts(TFS, g)
+        products, imad, byt = want[id(g)]
+        log_n = (g.m * g.c).bit_length() - 1
+        assert MX.twiddle_split(log_n) == log_n
+        assert (c["twiddle_products"], c["imad"], c["bytes"]) == (
+            products, imad * n, byt + table)
+    monkeypatch.setattr(MX, "TW_ONE_MAX_LOG", 8)
+    assert MX.twiddle_split(20) == 10 and MX.twiddle_split(15) == 8
+    c = CS.mxu_pass_counts(TFS, middle)
+    assert (c["twiddle_products"], c["imad"], c["bytes"]) == (
+        2, 656 * n, 64 * n + 32 * (2 ** 8 + 2 ** 7) + table)
+    c = CS.mxu_pass_counts(TFS, first)
+    assert (c["twiddle_products"], c["imad"], c["bytes"]) == (
+        2, 656 * n, 96 * n + 32 * 2 * 2 ** 10 + table)
+
+
+@pytest.mark.parametrize("m,v,lanes", [(16, 64, (2, 0)), (32, 100, (2, 0)),
+                                       (64, 256, (4, 0)), (32, 1024, (0, 6)),
+                                       (16, 4096, (8, 3))])
+def test_packed_digits_unpack_to_the_input(m, v, lanes):
+    """`pack_plain` then `unpack_plain` gives back the input; each
+    element's 32 bytes are its digits, little-endian, spread over the 32
+    digit slabs of its tile."""
+    _, _, x = _pair((m, v), 50 + m + v)
+    buf = MX.pack_plain(TFS, x, *lanes)
+    assert buf.dtype == torch.uint8
+    assert buf.numel() == -(-v // 64) * MX.packed_tile_bytes(m)
+    assert torch.equal(MX.unpack_plain(TFS, buf, m, v, *lanes), x)
+    # element (j = 1, vector 2): its tile and row, then digit 3's slab
+    ki = 2 if m >= 32 else 1
+    tile, row = MX.tile_row(2, *lanes)
+    at = tile * MX.packed_tile_bytes(m) + 3 * ki * 1024 + row * 16 + 1
+    assert int(buf[at]) == (int(x[1, 1, 2]) >> 8) & 0xFF
+    vv = torch.arange(v)
+    t, r = MX.tile_row(vv, *lanes)
+    assert torch.equal(MX.tile_base(t, *lanes) + (r >> 2 << lanes[0])
+                       + ((r & 3) << lanes[1]), vv)
+
+
+@pytest.mark.parametrize("log_m", [2, 5, 6])
+def test_u8_table_is_the_scaled_matrix(log_m):
+    """`table_u8` holds W''[k, j] = w^(kj) 2^288 mod p as 32 bytes under
+    each (output group, k-step, digit) core matrix, zero outside M and in
+    the PAD digits each side."""
+    plan = MX.get_mxu_plan(TFS, log_m, False)
+    t = plan.table_u8
+    m = plan.m
+    tm = max(m, 16)
+    assert t.shape == (tm // 8, max(1, tm // 32), 32 + 2 * MX.PAD, 2, 8, 16)
+    omega = TFS.root_of_unity(m)
+    scale = pow(2, 288, TFS.p)
+    for k, j in ((0, 0), (1, m - 1), (m - 1, m // 2)):
+        kg, kl, jh, ki, jb = k // 8, k % 8, j // 32, (j % 32) // 16, j % 16
+        digits = t[kg, jh, MX.PAD:MX.PAD + 32, ki, kl, jb]
+        want = pow(omega, k * j, TFS.p) * scale % TFS.p
+        assert int.from_bytes(bytes(digits.tolist()), "little") == want
+    assert not t[:, :, :MX.PAD].any() and not t[:, :, MX.PAD + 32:].any()
+    # (k, j) -> the 32 digits; zero past M on either axis
+    full = t.transpose(0, 4, 1, 3, 5, 2).reshape(tm, -1, 32 + 2 * MX.PAD)
+    assert not full[m:].any() and not full[:, m:].any()
+    assert full[:m, :m].any()
+
+
+def test_pass_plain_refusals():
+    """`mxu_pass` refuses what the kernel does not take, on any device."""
+    _, _, x = _pair((16 * 64,), 60)
+    g = MX.PassGeom(m=16, c=64, b=1, out_packed=True, twiddle=True, m2=16)
+    assert MX.mxu_pass(TFS, g, x, False).dtype == torch.uint8
+    with pytest.raises(ValueError):                   # side 48
+        MX.mxu_pass(TFS, dataclasses.replace(g, m=48), x, False)
+    with pytest.raises(ValueError):                   # packed at side 8
+        MX.mxu_pass(TFS, dataclasses.replace(g, m2=8), x, False)
+    with pytest.raises(ValueError):                   # lanes outside 64
+        MX.mxu_pass(TFS, dataclasses.replace(g, lsj=8), x, False)
+    with pytest.raises(TypeError):                    # packed input wanted
+        MX.mxu_pass(TFS, dataclasses.replace(g, in_packed=True), x, False)
+    with pytest.raises(TypeError):
+        MX.mxu_pass(TFS, g, x.to(torch.int64), False)
+    with pytest.raises(ValueError):                   # no instance
+        MX.mxu_pass(TP.GOLDILOCKS, g, torch.zeros((4, 1024),
+                                                  dtype=torch.int32), False)
+
+
 def test_block_launch_geometry_and_refusals():
     plan = MX.get_mxu_plan(TFS, 5, False)
     x = torch.zeros((TFS.nl, 32, 100), dtype=torch.int32)
@@ -189,6 +335,7 @@ def test_a_cuda_tensor_takes_the_kernel_or_raises(monkeypatch):
     _, _, x = _pair((1 << 8,), 24)
     card = x.as_subclass(_OnTheCard)
     monkeypatch.setattr(MX, "block_ntt_plain", None)   # no way back to it
+    monkeypatch.setattr(MX, "pass_plain", None)
     before = dict(MX.LAUNCHES)
     calls = []
 
@@ -199,8 +346,8 @@ def test_a_cuda_tensor_takes_the_kernel_or_raises(monkeypatch):
     monkeypatch.setattr(K, "entry", entry)
     with pytest.raises(RuntimeError, match="nvcc"):
         MX.ntt_mxu(TFS, card)
-    assert calls == ["zk_mxu_block"] and MX.LAUNCHES == before
+    assert calls == ["zk_mxu_pass"] and MX.LAUNCHES == before
     gl = torch.zeros((4, 1 << 8), dtype=torch.int32).as_subclass(_OnTheCard)
     with pytest.raises(ValueError):
         MX.ntt_mxu(TP.GOLDILOCKS, gl)
-    assert calls == ["zk_mxu_block"]
+    assert calls == ["zk_mxu_pass"]
