@@ -771,10 +771,17 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
     for pp in (PO.get_params(P.BLS12_381_FR), NPO.get_params(P.PALLAS_FQ),
                PO.get_params(P.BLS12_381_FQ)):
         fs = pp.fs
+        c = HH.lanes_counts(pp)
         log(f"  poseidon on {fs.name}: alpha {pp.alpha}, "
             f"{len(pp.round_constants)} rounds, partial "
-            f"{pp.partial_rounds}, rc first {pp.rc_first}, "
-            f"{HH.products_per_state(pp)} products a state")
+            f"{pp.partial_rounds}, rc first {pp.rc_first}; a state, the "
+            f"floor {c['floor_instructions']} multiply-add instructions; "
+            f"the lanes form issues {c['instructions']} ({c['products']} "
+            f"products, {c['squarings']} squarings among them, "
+            f"{c['reductions']} reductions); the textbook schedule (shared "
+            f"and tree forms, the lanes form before) "
+            f"{c['textbook_products']} products, "
+            f"{c['textbook_instructions']} instructions")
         for form in ("lanes", "shared"):
             permute, level, absorb, _ = forms(form)
             for n in (1, 33, 4096, top):
@@ -802,7 +809,8 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
     # and a two-row leaf sponge (no state, two absorb planes, element 0 out)
     pp = PO.get_params(P.BLS12_381_FR)
     fs = pp.fs
-    products = HH.products_per_state(pp)
+    counts = HH.lanes_counts(pp)
+    floor = counts["floor_instructions"]
     for form in ("lanes", "shared"):
         _, level, _, sponge = forms(form)
         err[form] = max(err[form], compare(
@@ -814,8 +822,12 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
              rand_field(torch, fs, (top,), gen))))
     # each form timed at each size; the row's own numbers at the size where
     # the wrapper picks it (2^17 for one thread a state, as in earlier runs;
-    # 2^12 for three threads a state)
-    chain = {"lanes": products, "shared": len(pp.round_constants) * 6}
+    # 2^12 for three threads a state). Every form's operations are the
+    # permutation's floor of multiply-add instructions
+    # (`hopper_hash.lanes_counts`); the lanes form's chain is that floor in
+    # general products' worth, the shared form's its own 6 products a round.
+    chain = {"lanes": floor / mont_ops(fs.nl),
+             "shared": len(pp.round_constants) * 6}
     form_rows = {}
     for form, name, n_row in (("lanes", "poseidon", top),
                               ("shared", "poseidon_shared", 1 << 12)):
@@ -825,11 +837,30 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
                       permute_plain,
                       lambda: (rand_field(torch, fs, (3, n_row), gen),),
                       bytes_moved=6 * fs.nl * 4 * n_row,
-                      ops=products * mont_ops(fs.nl) * n_row,
+                      ops=floor * n_row,
                       per_set_bytes=3 * fs.nl * 4 * n_row,
                       extra_err=err[form])
         form_rows[form] = row
         row["form"] = form
+        if form == "lanes":
+            issued = counts["instructions"] * n_row
+            textbook = counts["textbook_instructions"] * n_row
+            row["counts_per_state"] = counts
+            row["issued_int_bound_ms"] = int_bound_ms(
+                6 * fs.nl * 4 * n_row, issued)
+            row["textbook_bound_ms"] = bound(6 * fs.nl * 4 * n_row,
+                                             textbook)[0]
+            row["textbook_int_bound_ms"] = int_bound_ms(
+                6 * fs.nl * 4 * n_row, textbook)
+            log(f"  poseidon (lanes) bounds at {n_row} states: "
+                f"{row['bound_ms']:.4f} ms at 67 T/s and "
+                f"{row['int_bound_ms']:.4f} ms at the measured integer rate "
+                f"for the floor's {floor} instructions a state; the "
+                f"{counts['instructions']} the form issues at that rate: "
+                f"{row['issued_int_bound_ms']:.4f} ms; the textbook's "
+                f"{counts['textbook_instructions']}: "
+                f"{row['textbook_bound_ms']:.4f} / "
+                f"{row['textbook_int_bound_ms']:.4f} ms")
         row["products_in_sequence"] = chain[form]
         row["latency_bound_ms"] = chain[form] * product_ms
         for n in POSEIDON_SIZES:
@@ -849,7 +880,7 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
         torch, lambda i: forms("lanes")[1](fs, digests[i]), len(digests), 20,
         queued=True)
     lanes_row["level_shape"] = [fs.nl, top // 2]
-    lanes_row["products_per_state"] = products
+    lanes_row["products_per_state"] = counts["products"]
     log(f"  poseidon, node level of {top // 2} states: "
         f"{lanes_row['level_ms']:.4f} ms")
     del digests
@@ -860,7 +891,7 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
                   "crypto3_zk_tpu/ops/poseidon.py:185", fs, tree, tree_plain,
                   lambda: (rand_field(torch, fs, (n2,), gen),),
                   bytes_moved=fs.nl * 4 * (n2 + 2 * HH.TREE_MAX - 1),
-                  ops=products * mont_ops(fs.nl) * (2 * HH.TREE_MAX - 1),
+                  ops=floor * (2 * HH.TREE_MAX - 1),
                   per_set_bytes=FLUSH_BYTES, extra_err=err["tree"],
                   plain_reps=1)
     row["form"] = "tree"
@@ -1008,7 +1039,7 @@ def check_field(torch, fs, gen, compare, measure):
             latency_bound_ms=product_ms
             * HM.tail_products_in_sequence(fs, 512))
     pp = PO.get_params(fs)
-    products = HH.products_per_state(pp)
+    floor = HH.lanes_counts(pp)["floor_instructions"]
 
     def planes(state):
         return (state[:, 0], state[:, 1], state[:, 2])
@@ -1040,7 +1071,7 @@ def check_field(torch, fs, gen, compare, measure):
             permute_plain,
             lambda: (rand_field(torch, fs, (3, n_row), gen),),
             bytes_moved=6 * fs.nl * 4 * n_row,
-            ops=products * mont_ops(fs.nl) * n_row,
+            ops=floor * n_row,
             per_set_bytes=3 * fs.nl * 4 * n_row, extra_err=errs[form])
         row["form"] = form
     n2 = 2 * HH.TREE_MAX
@@ -1050,7 +1081,7 @@ def check_field(torch, fs, gen, compare, measure):
             lambda fs_, d: tuple(HH.poseidon_tree_plain(pp, d)),
             lambda: (rand_field(torch, fs, (n2,), gen),),
             bytes_moved=fs.nl * 4 * (n2 + 2 * HH.TREE_MAX - 1),
-            ops=products * mont_ops(fs.nl) * (2 * HH.TREE_MAX - 1),
+            ops=floor * (2 * HH.TREE_MAX - 1),
             per_set_bytes=FLUSH_BYTES, extra_err=errs["tree"])
 
 

@@ -229,13 +229,15 @@ __device__ __forceinline__ void sub_mod(uint32_t (&r)[NW],
 // goes to E when i+j is even, to O when it is odd, so each array is a row of
 // 64-bit accumulators that never overlap and one carry chain runs along each.
 // With `fold`, the carry out of word i-1 of the sum (whose two halves are
-// E[i-1] and O[i-1]) enters the chain that starts at word i.
-template <int NW>
-__device__ __forceinline__ void mad_row(
-    uint32_t (&E)[FieldShape<NW>::acc_words],
-    uint32_t (&O)[FieldShape<NW>::acc_words], const uint32_t (&v)[NW],
-    uint32_t s, int i, bool fold) {
-  constexpr int A = FieldShape<NW>::acc_words;
+// E[i-1] and O[i-1]) enters the chain that starts at word i. With `WIDE`
+// (a full top word, or a sum of several products before one reduction) the
+// sum may reach into word i+NW+1 and both chains run on to it; the arrays
+// then have 2*NW+1 words.
+template <int NW, bool WIDE = FieldShape<NW>::full_top, int A>
+__device__ __forceinline__ void mad_row(uint32_t (&E)[A], uint32_t (&O)[A],
+                                        const uint32_t (&v)[NW], uint32_t s,
+                                        int i, bool fold) {
+  static_assert(A >= 2 * NW + (WIDE ? 1 : 0), "accumulator too short");
   uint32_t (&X)[A] = (i & 1) ? O : E;    // holds words i, i+2, ...
   uint32_t (&Y)[A] = (i & 1) ? E : O;
   if (fold) {
@@ -246,8 +248,8 @@ __device__ __forceinline__ void mad_row(
   }
 #pragma unroll
   for (int j = 2; j < NW; j += 2) madc_wide_cc(X[i + j], X[i + j + 1], v[j], s);
-  if constexpr (FieldShape<NW>::full_top) {
-    // the sum may reach one bit into word i+NW+1: both chains run on to it
+  if constexpr (WIDE) {
+    // the sum may reach into word i+NW+1: both chains run on to it
     X[i + NW] = addc_cc(X[i + NW], 0u);
     X[i + NW + 1] = addc(X[i + NW + 1], 0u);
     mad_wide_cc(Y[i + 1], Y[i + 2], v[1], s);
@@ -317,6 +319,73 @@ __device__ __forceinline__ void mont_mul(uint32_t (&r)[NW],
     for (int j = 0; j < NW - 1; ++j) t[j] = addc_cc(E[NW + j], O[NW + j]);
     t[NW - 1] = addc(E[2 * NW - 1], O[2 * NW - 1]);
     cond_sub_p<NW>(r, t, F);
+  }
+}
+
+// r = the one of t, t - p, t - 2p that is below p, for t < 3p given as NW
+// words and a carry word `top` (0 or 1) above them.
+template <int NW>
+__device__ __forceinline__ void sub_p_twice(uint32_t (&r)[NW],
+                                            const uint32_t (&t)[NW],
+                                            const FieldConst<NW>& F,
+                                            uint32_t top) {
+  uint32_t d[NW], e[NW];
+  d[0] = sub_cc(t[0], F.p[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) d[j] = subc_cc(t[j], F.p[j]);
+  const uint32_t top1 = subc(top, 0u);     // 1 or 0 if t >= p, else all ones
+  e[0] = sub_cc(d[0], F.p[0]);
+#pragma unroll
+  for (int j = 1; j < NW; ++j) e[j] = subc_cc(d[j], F.p[j]);
+  const uint32_t top2 = subc(top1, 0u);    // 0 or 1 if t >= 2p
+  const bool two = top2 <= 1u, one = top1 <= 1u;
+#pragma unroll
+  for (int j = 0; j < NW; ++j) r[j] = two ? e[j] : (one ? d[j] : t[j]);
+}
+
+// Montgomery sum of three products, r = (x0 c0 + x1 c1 + x2 c2) R^{-1} mod p,
+// all operands below p: one reduction for the three. Row i adds x_k * c_k[i]
+// for k = 0, 1, 2 and then m*p, so it is `mont_mul` with three product rows
+// to each reduction row. After row i the sum is below (3p + p) 2^(32(i+1)),
+// under 2R 2^(32(i+1)) where p < R/2: it may reach one bit into word
+// i+NW+1, so the rows run `WIDE` over 2*NW+1 words. The result is below
+// 3p^2/R + p < 2.5p (bls12-381 Fr, p/R = 0.453: 2.36p; it may pass R), so
+// up to two subtractions of p end it.
+// The 8- and 12-word instances (p < R/2) take this form. The 2-word one
+// (p fills its top word, a row of three reduces below 4p) and the 10-word
+// one (R = 2^304 splits a word) reduce each product and add the three.
+template <int NW>
+__device__ __forceinline__ void mont_dot3(
+    uint32_t (&r)[NW], const uint32_t (&x0)[NW], const uint32_t (&c0)[NW],
+    const uint32_t (&x1)[NW], const uint32_t (&c1)[NW],
+    const uint32_t (&x2)[NW], const uint32_t (&c2)[NW],
+    const FieldConst<NW>& F) {
+  if constexpr (FieldShape<NW>::full_top || FieldShape<NW>::half_top) {
+    uint32_t t[NW];
+    mont_mul<NW>(r, x0, c0, F);
+    mont_mul<NW>(t, x1, c1, F);
+    add_mod<NW>(r, r, t, F);
+    mont_mul<NW>(t, x2, c2, F);
+    add_mod<NW>(r, r, t, F);
+  } else {
+    constexpr int A = 2 * NW + 1;
+    uint32_t E[A], O[A];
+#pragma unroll
+    for (int j = 0; j < A; ++j) E[j] = O[j] = 0;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      mad_row<NW, true>(E, O, x0, c0[i], i, i > 0);
+      mad_row<NW, true>(E, O, x1, c1[i], i, false);
+      mad_row<NW, true>(E, O, x2, c2[i], i, false);
+      const uint32_t m = (E[i] + O[i]) * F.ninv;
+      mad_row<NW, true>(E, O, F.p, m, i, false);
+    }
+    uint32_t t[NW];
+    add_cc(E[NW - 1], O[NW - 1]);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) t[j] = addc_cc(E[NW + j], O[NW + j]);
+    const uint32_t top = addc(E[2 * NW], O[2 * NW]);
+    sub_p_twice<NW>(r, t, F, top);
   }
 }
 

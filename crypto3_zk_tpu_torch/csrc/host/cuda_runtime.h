@@ -144,6 +144,9 @@ inline void named_arrive(int id, int count) {
 struct alignas(16) uint4 {
   unsigned x, y, z, w;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
 inline void fence_async_smem() {}
 inline void wgmma_fence() {}
 inline void wgmma_commit() {}

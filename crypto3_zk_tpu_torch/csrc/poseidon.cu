@@ -5,21 +5,15 @@
 // from its elementwise field ops (`ops/poseidon.py::permute_batch`,
 // `ops/nil_poseidon.py::permute_batch`) and leaves the fusion to XLA.
 // Composed the same way here it would be about 1,200 launches a permutation
-// (828 products and some 400 additions for 8 full and 57 partial rounds), so
-// the rounds run inside one kernel, the round constants and the MDS matrix
-// staged once per block in shared memory.
+// (828 products and some 400 additions for 8 full and 57 partial rounds in
+// the textbook schedule), so the rounds run inside one kernel, with their
+// constants staged once per block in shared memory.
 //
-// One schedule serves both flavours; it is data:
-//   rounds            number of rounds
-//   p_begin, p_end    rounds r with p_begin <= r < p_end are partial (the
-//                     S-box on element 0 only); the MDS mix is full always
-//   alpha             the S-box exponent, raised by square-and-multiply on
-//                     its bits (5, 7, 11, 13, 17 all run)
-//   rc_first          1: round = add rc -> S-box -> MDS (original Poseidon)
-//                     0: round = S-box -> MDS -> add rc (the nil flavour)
-// consts: (rounds*3 + 9) elements of NW fused words, Montgomery form: the
-// round constants rc[r][i] at r*3 + i, then the matrix M[i][j] at
-// rounds*3 + i*3 + j.
+// The schedule (`sched` of the entry): rounds; p_begin, p_end (rounds r with
+// p_begin <= r < p_end are partial: the S-box on element 0 only); alpha, the
+// S-box exponent; rc_first, 1: round = add rc -> S-box -> MDS (original
+// Poseidon), 0: round = S-box -> MDS -> add rc (the nil flavour, all rounds
+// full, x^7); lanes_out.
 //
 // Inputs for the Merkle shapes, so that no state is assembled in memory:
 // element i of the state is read from plane pointer in[i] with its own lane
@@ -30,48 +24,68 @@
 // ((NL, 3, n), element i of lane l at i*n + l). Lanes are innermost in every
 // load and store.
 //
-// What bounds it. A state moves 6*NL*4 bytes for (rounds*9 + S-box
-// products) Montgomery products: the operations, by three orders of
-// magnitude. Inside one thread every product is one carry chain (the PTX
-// carry flag orders every instruction of it, and the next product needs its
-// result), so a thread's products follow one another at about 0.44 us each
-// at NW = 8 on an H100. Two regimes follow:
-// - a large level (tens of thousands of states) fills the card, and the
-//   rate of the integer pipes bounds it;
-// - a small level is pure latency: the old form, one thread a state, takes
-//   828 products in sequence, about 0.36 ms, whether the level has 1 state
-//   or 2^14, and a tree of 2^17 leaves has about 15 such levels, one launch
-//   each.
+// What bounds it. A state moves 6*NL*4 bytes for hundreds of Montgomery
+// products: the operations, by three orders of magnitude. Inside one thread
+// every product is one carry chain (the PTX carry flag orders every
+// instruction of it, and the next product needs its result). Two regimes
+// follow: a large level (tens of thousands of states) fills the card and
+// the rate of the integer pipes bounds it; a small level is pure latency,
+// a thread's instructions in sequence, whether the level has 1 state or
+// 2^13.
+//
 // The three forms:
 // - `poseidon_kernel` (lanes): one thread a state, all three elements in
-//   registers. The fewest products a state (828), so the best where the
-//   rate bounds: large levels.
+//   registers: the fewest instructions a state, so the form for large
+//   levels, and since its redesign the shorter chain too. Templated on the
+//   word count, alpha and the flavour, the round loop branch-free:
+//   * original flavour: sparse partial rounds (`ops/hopper_hash.py::
+//     sparse_schedule`, Grassi et al., eprint 2019/458, Appendix B). A
+//     partial round adds one constant to element 0, raises it, and mixes by
+//     a sparse matrix: s0' = m00 s0 + w1 s1 + w2 s2, s1' = s1 + v1 s0,
+//     s2' = s2 + v2 s0, five products instead of nine; the last full round
+//     before them mixes by the dense pre-sparse matrix, the first after
+//     them adds the constants they pushed forward. Table: the full rounds'
+//     rc vectors, M, the pre-sparse matrix, then (k, m00, w1, w2, v1, v2)
+//     a partial round: 384 entries, 12 KB at NW = 8, 18 KB at NW = 12;
+//   * nil flavour: the dense schedule on the dense table (rounds*3 + 9
+//     entries: rc[r][i] at r*3 + i, then M[i][j]);
+//   * both: the S-box unrolled on alpha's bits (its squarings general
+//     products: a Montgomery squaring, `tools/mont_sqr.cuh`, measured
+//     slower here), each row of a mix as `mont_dot3` (three products, one
+//     reduction, in the 8- and 12-word instances, p < R/2; the 2- and
+//     10-word ones reduce each product, see `field.cuh`), constants read as
+//     16-byte (8-byte at NW = 2, 10) shared loads.
+//   bls12-381 Fr (alpha 5, 8 full and 57 partial rounds): 600 products, 438
+//   reductions, 139,872 multiply-add instructions by `chip_smoke.py`'s
+//   count, against 828 products and 225,216 in the textbook schedule; the
+//   permutation's floor, with squarings of NW (NW + 1) / 2 word products,
+//   is 130,800 (`ops/hopper_hash.py::lanes_counts`).
 // - `poseidon_shared_kernel` (shared): three threads a state, thread e
-//   owning element e. In a full round each applies the S-box to its own
-//   element; in a partial round each applies it to element 0 (all three at
-//   once, so no thread waits for another); then each computes its own row
-//   of the MDS mix from the three S-box outputs, exchanged through shared
-//   memory within the warp. That is 6 products in sequence a round, 390 a
-//   permutation instead of 828, for about 1.4 times the products in all: the
-//   better form where latency bounds, up to the level size where the rate
-//   takes over (`SHARED_MAX` in `ops/hopper_hash.py`, by measurement).
+//   owning element e, on the textbook schedule and the dense table. In a
+//   full round each applies the S-box to its own element; in a partial
+//   round each applies it to element 0 (all three at once, so no thread
+//   waits for another); then each computes its own row of the MDS mix from
+//   the three S-box outputs, exchanged through shared memory within the
+//   warp. That is 6 products in sequence a round, 390 a permutation, for
+//   about 1.4 times the textbook's products in all: the form for small
+//   levels, up to `SHARED_MAX` in `ops/hopper_hash.py` (by measurement).
 // - `poseidon_tree_kernel` (tree): the shared form in ONE block that hashes
 //   a Merkle tree's last levels, from at most ZK_TREE_MAX states down to the
 //   root, with a barrier between levels. Each level is still one latency of
 //   390 products, but one launch replaces one a level, and each level's
 //   digests go to their own plane, because proofs read every level.
-// Measured on an H100 (`chip_smoke.py`): the one-thread form 0.376 ms on 64
-// or 4,096 states and 2.265 ms on 2^17; the shared form 0.189 ms on 64 or
-// 4,096 and 2.970 ms on 2^17, where its extra products cost more than its
-// shorter chain saves. Past about 1.5 warps an SM sub-partition, the
-// multiply-adds of the warps' chains share that sub-partition's integer pipe
-// (16.2 T multiply-adds a second measured for the card, about 0.55 warp
-// instructions a cycle a sub-partition, against one every 2.8 cycles that a
-// chain asks for). A block of 13 warps (128 states) hashed its 8 levels in
-// 1.89 ms, not 8 x 0.19: its first level, 3 to 4 warps a sub-partition, ran
-// twice as long. So the tree takes at most 64 states (7 warps on one SM,
-// 7 levels in 1.40 ms against a latency bound of 1.21), and the level of
-// 128 is a launch of the shared form.
+// Measured on an H100 (`chip_smoke.py`, before the lanes form's redesign):
+// the one-thread form 0.376 ms on 64 or 4,096 states and 2.263 ms on 2^17;
+// the shared form 0.189 ms on 64 or 4,096 and 2.970 ms on 2^17. Past about
+// 1.5 warps an SM sub-partition, the multiply-adds of the warps' chains
+// share that sub-partition's integer pipe (16.2 T multiply-adds a second
+// measured for the card). A block of 13 warps (128 states) hashed its 8
+// levels in 1.89 ms, not 8 x 0.19: its first level, 3 to 4 warps a
+// sub-partition, ran twice as long. So the tree takes at most 64 states (7
+// warps on one SM, 7 levels in 1.40 ms against a latency bound of 1.21),
+// and the level of 128 is a launch of the shared form.
+#include <type_traits>
+
 #include "field.cuh"
 
 struct PoseidonPlane {
@@ -92,7 +106,8 @@ __device__ __forceinline__ void load_const(uint32_t (&w)[NW],
   for (int j = 0; j < NW; ++j) w[j] = src[j];
 }
 
-// x <- x^alpha, alpha >= 2, by its bits below the top one
+// x <- x^alpha, alpha >= 2, by its bits below the top one (the shared and
+// tree forms)
 template <int NW>
 __device__ __forceinline__ void sbox(uint32_t (&x)[NW], int alpha, int top,
                                      const FieldConst<NW>& F) {
@@ -113,19 +128,143 @@ __device__ __forceinline__ void sbox(uint32_t (&x)[NW], int alpha, int top,
   for (int j = 0; j < NW; ++j) x[j] = acc[j];
 }
 
+// ---------------------------------------------------------------------------
+// the lanes form
+// ---------------------------------------------------------------------------
+
+// The piece a shared-memory load of the lanes form moves: 16 bytes where a
+// constant (NW words, at a multiple of NW words) is 16-byte aligned, else 8.
 template <int NW>
+using ConstPiece = std::conditional_t<NW % 4 == 0, uint4, uint2>;
+
+template <int NW>
+__device__ __forceinline__ void load_words(uint32_t (&w)[NW],
+                                           const uint32_t* src) {
+  using V = ConstPiece<NW>;
+  constexpr int k = sizeof(V) / 4;
+#pragma unroll
+  for (int j = 0; j < NW; j += k) {
+    const V v = reinterpret_cast<const V*>(src)[j / k];
+    w[j] = v.x;
+    w[j + 1] = v.y;
+    if constexpr (k == 4) {
+      w[j + 2] = v.z;
+      w[j + 3] = v.w;
+    }
+  }
+}
+
+// x <- x^ALPHA, square-and-multiply on ALPHA's bits below the top one,
+// unrolled (x^5: two squarings and a product). The squarings are general
+// products: a Montgomery squaring was slower here (`tools/poseidon_times.py`
+// builds the form with `tools/mont_sqr.cuh`).
+template <int NW, int ALPHA>
+__device__ __forceinline__ void sbox_pow(uint32_t (&x)[NW],
+                                         const FieldConst<NW>& F) {
+  static_assert(ALPHA >= 2 && ALPHA < 256, "alpha");
+  uint32_t acc[NW];
+#pragma unroll
+  for (int j = 0; j < NW; ++j) acc[j] = x[j];
+#pragma unroll
+  for (int b = 7; b >= 0; --b) {
+    if ((ALPHA >> (b + 1)) == 0) continue;     // the top bit and above
+    mont_mul<NW>(acc, acc, acc, F);            // the square
+    if ((ALPHA >> b) & 1) mont_mul<NW>(acc, acc, x, F);
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j) x[j] = acc[j];
+}
+
+// s <- M s, M's nine entries at m (row-major), a row a `mont_dot3`
+template <int NW>
+__device__ __forceinline__ void mix_dense(uint32_t (&s0)[NW],
+                                          uint32_t (&s1)[NW],
+                                          uint32_t (&s2)[NW],
+                                          const uint32_t* m,
+                                          const FieldConst<NW>& F) {
+  uint32_t r[3][NW], c0[NW], c1[NW], c2[NW];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    load_words<NW>(c0, m + (3 * i) * NW);
+    load_words<NW>(c1, m + (3 * i + 1) * NW);
+    load_words<NW>(c2, m + (3 * i + 2) * NW);
+    mont_dot3<NW>(r[i], s0, c0, s1, c1, s2, c2, F);
+  }
+#pragma unroll
+  for (int j = 0; j < NW; ++j) {
+    s0[j] = r[0][j];
+    s1[j] = r[1][j];
+    s2[j] = r[2][j];
+  }
+}
+
+// s <- s + rc, rc's three entries at c
+template <int NW>
+__device__ __forceinline__ void add_rc(uint32_t (&s0)[NW], uint32_t (&s1)[NW],
+                                       uint32_t (&s2)[NW], const uint32_t* c,
+                                       const FieldConst<NW>& F) {
+  uint32_t k[NW];
+  load_words<NW>(k, c);
+  add_mod<NW>(s0, s0, k, F);
+  load_words<NW>(k, c + NW);
+  add_mod<NW>(s1, s1, k, F);
+  load_words<NW>(k, c + 2 * NW);
+  add_mod<NW>(s2, s2, k, F);
+}
+
+// One partial round of the sparse schedule; q: (k, m00, w1, w2, v1, v2)
+template <int NW, int ALPHA>
+__device__ __forceinline__ void partial_round(uint32_t (&s0)[NW],
+                                              uint32_t (&s1)[NW],
+                                              uint32_t (&s2)[NW],
+                                              const uint32_t* q,
+                                              const FieldConst<NW>& F) {
+  uint32_t c0[NW], c1[NW], c2[NW], r0[NW];
+  load_words<NW>(c0, q);
+  add_mod<NW>(s0, s0, c0, F);
+  sbox_pow<NW, ALPHA>(s0, F);
+  load_words<NW>(c0, q + NW);
+  load_words<NW>(c1, q + 2 * NW);
+  load_words<NW>(c2, q + 3 * NW);
+  mont_dot3<NW>(r0, s0, c0, s1, c1, s2, c2, F);
+  load_words<NW>(c1, q + 4 * NW);
+  mont_mul<NW>(c0, s0, c1, F);
+  add_mod<NW>(s1, s1, c0, F);
+  load_words<NW>(c2, q + 5 * NW);
+  mont_mul<NW>(c0, s0, c2, F);
+  add_mod<NW>(s2, s2, c0, F);
+#pragma unroll
+  for (int j = 0; j < NW; ++j) s0[j] = r0[j];
+}
+
+// Entries (constants of NW words) of the lanes form's table.
+__host__ __device__ inline int lanes_table_entries(const PoseidonArgs& A) {
+  const int partial = A.p_end - A.p_begin;
+  return A.rc_first ? (A.rounds - partial) * 3 + 18 + partial * 6
+                    : A.rounds * 3 + 9;
+}
+
+// SPARSE: the original flavour on `sparse_schedule`'s table (full rounds
+// f < p_begin, the partial rounds after full round p_begin - 1, then the
+// rest; the partial loop sits inside the full one and runs once). Else the
+// nil flavour on the dense table.
+template <int NW, int ALPHA, bool SPARSE>
 __global__ void __launch_bounds__(128)
 poseidon_kernel(FieldConst<NW> F, PoseidonArgs A,
                 const uint32_t* __restrict__ consts, int32_t* __restrict__ out,
                 long long n) {
   extern __shared__ uint32_t sh[];
-  const int total = (A.rounds * 3 + 9) * NW;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) sh[i] = consts[i];
+  using V = ConstPiece<NW>;
+  constexpr int k = sizeof(V) / 4;
+  const int pieces = lanes_table_entries(A) * NW / k;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < pieces; i += blockDim.x)
+    reinterpret_cast<V*>(sh)[i] = reinterpret_cast<const V*>(consts)[i];
   __syncthreads();
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
 
-  uint32_t s0[NW], s1[NW], s2[NW], c[NW], t[NW];
+  uint32_t s0[NW], s1[NW], s2[NW], c[NW];
 #pragma unroll
   for (int j = 0; j < NW; ++j) s0[j] = s1[j] = s2[j] = 0;
   if (A.in[0].ptr)
@@ -143,54 +282,34 @@ poseidon_kernel(FieldConst<NW> F, PoseidonArgs A,
     add_mod<NW>(s1, s1, c, F);
   }
 
-  int top = 0;
-  while ((A.alpha >> (top + 1)) != 0) ++top;
-  const uint32_t* mds = sh + A.rounds * 3 * NW;
-
+  if constexpr (SPARSE) {
+    const int partial = A.p_end - A.p_begin, full = A.rounds - partial;
+    const uint32_t* mds = sh + full * 3 * NW;
+    const uint32_t* pre = mds + 9 * NW;
+    const uint32_t* part = pre + 9 * NW;
 #pragma unroll 1
-  for (int r = 0; r < A.rounds; ++r) {
-    const uint32_t* rc = sh + r * 3 * NW;
-    if (A.rc_first) {
-      load_const<NW>(c, rc);
-      add_mod<NW>(s0, s0, c, F);
-      load_const<NW>(c, rc + NW);
-      add_mod<NW>(s1, s1, c, F);
-      load_const<NW>(c, rc + 2 * NW);
-      add_mod<NW>(s2, s2, c, F);
-    }
-    sbox<NW>(s0, A.alpha, top, F);
-    if (r < A.p_begin || r >= A.p_end) {
-      sbox<NW>(s1, A.alpha, top, F);
-      sbox<NW>(s2, A.alpha, top, F);
-    }
-    // the MDS mix: row i is M[i][0]*s0 + M[i][1]*s1 + M[i][2]*s2
-    uint32_t m0[NW], m1[NW], m2[NW];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      uint32_t (&m)[NW] = i == 0 ? m0 : (i == 1 ? m1 : m2);
-      load_const<NW>(c, mds + (i * 3 + 0) * NW);
-      mont_mul<NW>(m, c, s0, F);
-      load_const<NW>(c, mds + (i * 3 + 1) * NW);
-      mont_mul<NW>(t, c, s1, F);
-      add_mod<NW>(m, m, t, F);
-      load_const<NW>(c, mds + (i * 3 + 2) * NW);
-      mont_mul<NW>(t, c, s2, F);
-      add_mod<NW>(m, m, t, F);
-    }
-    if (A.rc_first) {
-#pragma unroll
-      for (int j = 0; j < NW; ++j) {
-        s0[j] = m0[j];
-        s1[j] = m1[j];
-        s2[j] = m2[j];
+    for (int f = 0; f < full; ++f) {
+      add_rc<NW>(s0, s1, s2, sh + f * 3 * NW, F);
+      sbox_pow<NW, ALPHA>(s0, F);
+      sbox_pow<NW, ALPHA>(s1, F);
+      sbox_pow<NW, ALPHA>(s2, F);
+      const bool last_before = f == A.p_begin - 1;
+      mix_dense<NW>(s0, s1, s2, last_before ? pre : mds, F);
+      if (last_before) {
+#pragma unroll 1
+        for (int q = 0; q < partial; ++q)
+          partial_round<NW, ALPHA>(s0, s1, s2, part + q * 6 * NW, F);
       }
-    } else {
-      load_const<NW>(c, rc);
-      add_mod<NW>(s0, m0, c, F);
-      load_const<NW>(c, rc + NW);
-      add_mod<NW>(s1, m1, c, F);
-      load_const<NW>(c, rc + 2 * NW);
-      add_mod<NW>(s2, m2, c, F);
+    }
+  } else {
+    const uint32_t* mds = sh + A.rounds * 3 * NW;
+#pragma unroll 1
+    for (int r = 0; r < A.rounds; ++r) {
+      sbox_pow<NW, ALPHA>(s0, F);
+      sbox_pow<NW, ALPHA>(s1, F);
+      sbox_pow<NW, ALPHA>(s2, F);
+      mix_dense<NW>(s0, s1, s2, mds, F);
+      add_rc<NW>(s0, s1, s2, sh + r * 3 * NW, F);
     }
   }
 
@@ -394,28 +513,62 @@ poseidon_tree_kernel(FieldConst<NW> F, PoseidonArgs A,
   }
 }
 
+template <int NW, int ALPHA, bool SPARSE>
+static int launch_lanes(const uint32_t* fconsts, const PoseidonArgs& A,
+                        const void* consts, void* out, long long n,
+                        cudaStream_t stream) {
+  const size_t smem = (size_t)lanes_table_entries(A) * NW * sizeof(uint32_t);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const long long blocks = (n + threads - 1) / threads;
+  poseidon_kernel<NW, ALPHA, SPARSE><<<(unsigned)blocks, threads, smem,
+                                       stream>>>(
+      make_const<NW>(fconsts), A, (const uint32_t*)consts, (int32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// The lanes form's instances, (words, alpha, sparse): the parameter sets
+// of `ops/poseidon.py` (original flavour, sparse partial rounds) over the
+// fields with a kernel instance, bls12-381 Fr, alt_bn128, Pallas and Vesta
+// (8 words, x^5), bls12-381 Fq (12, x^5), MNT4 and MNT6 Fr (10, x^5 and
+// x^11) and Goldilocks (2, x^7), and the nil flavour of
+// `ops/nil_poseidon.py` (Pallas Fq, 8 words, x^7, dense). Each instance is
+// a few thousand unrolled instructions, and every one adds to the build,
+// so no other is compiled; another schedule is refused.
+#define ZK_LANES_INSTANCES(X) \
+  X(2, 7, true) X(8, 5, true) X(8, 7, false) X(10, 5, true) X(10, 11, true) \
+  X(12, 5, true)
+
+// The sparse schedule needs a full round before the partial ones, and one
+// after them where there are any; the dense one has no partial rounds.
+static int launch_lanes_form(int nw, const uint32_t* fconsts,
+                             const PoseidonArgs& A, const void* consts,
+                             void* out, long long n, cudaStream_t stream) {
+  const bool sparse = A.rc_first != 0;
+  if (sparse ? (A.p_begin < 1 || A.p_end < A.p_begin || A.p_end > A.rounds ||
+                (A.p_end == A.rounds && A.p_end > A.p_begin))
+             : A.p_begin != A.p_end)
+    return (int)cudaErrorInvalidValue;
+#define ZK_LANES_CASE(W, AL, SP)                                       \
+  if (nw == W && A.alpha == AL && sparse == SP)                        \
+    return launch_lanes<W, AL, SP>(fconsts, A, consts, out, n, stream);
+  ZK_LANES_INSTANCES(ZK_LANES_CASE)
+#undef ZK_LANES_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int NW>
-static int launch_poseidon(const uint32_t* fconsts, const PoseidonArgs& A,
-                           const void* consts, void* out, long long n,
-                           int form, cudaStream_t stream) {
+static int launch_shared(const uint32_t* fconsts, const PoseidonArgs& A,
+                         const void* consts, void* out, long long n,
+                         cudaStream_t stream) {
   size_t smem = (size_t)(A.rounds * 3 + 9) * NW * sizeof(uint32_t);
-  if (form == 0) {
-    const int threads = 128;
-    long long blocks = (n + threads - 1) / threads;
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    poseidon_kernel<NW><<<(unsigned)blocks, threads, smem, stream>>>(
-        make_const<NW>(fconsts), A, (const uint32_t*)consts, (int32_t*)out,
-        n);
-  } else {
-    const long long per_block = (ZK_SHARED_THREADS / 32) * (ZK_GROUP_LANES / 3);
-    long long blocks = (n + per_block - 1) / per_block;
-    smem += (size_t)NW * ZK_SHARED_THREADS * sizeof(uint32_t);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    poseidon_shared_kernel<NW><<<(unsigned)blocks, ZK_SHARED_THREADS, smem,
-                                 stream>>>(
-        make_const<NW>(fconsts), A, (const uint32_t*)consts, (int32_t*)out,
-        n);
-  }
+  const long long per_block = (ZK_SHARED_THREADS / 32) * (ZK_GROUP_LANES / 3);
+  long long blocks = (n + per_block - 1) / per_block;
+  smem += (size_t)NW * ZK_SHARED_THREADS * sizeof(uint32_t);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  poseidon_shared_kernel<NW><<<(unsigned)blocks, ZK_SHARED_THREADS, smem,
+                               stream>>>(
+      make_const<NW>(fconsts), A, (const uint32_t*)consts, (int32_t*)out, n);
   return (int)cudaGetLastError();
 }
 
@@ -439,8 +592,10 @@ static bool read_args(PoseidonArgs& A, const void* const* ptrs,
 
 // ptrs: the five plane pointers {in0, in1, in2, add0, add1}, null where
 // absent; strides: {lane, limb} for each of the five, in int32s; sched:
-// {rounds, p_begin, p_end, alpha, rc_first, lanes_out}; form: 0 one thread
-// a state, 1 three threads a state.
+// {rounds, p_begin, p_end, alpha, rc_first, lanes_out}; consts: the
+// form's table (`ops/hopper_hash.py`: `_lanes_words` for form 0,
+// `_const_words` for form 1); form: 0 one thread a state, 1 three threads a
+// state.
 extern "C" int zk_poseidon_permute(int nw, const uint32_t* fconsts,
                                    const void* const* ptrs,
                                    const long long* strides, const int* sched,
@@ -450,8 +605,10 @@ extern "C" int zk_poseidon_permute(int nw, const uint32_t* fconsts,
   if (n < 1 || !read_args(A, ptrs, strides, sched) || form < 0 || form > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  ZK_DISPATCH_NW(nw, return launch_poseidon<NW>(fconsts, A, consts, out, n,
-                                                form, st));
+  if (form == 0)
+    return launch_lanes_form(nw, fconsts, A, consts, out, n, st);
+  ZK_DISPATCH_NW(nw, return launch_shared<NW>(fconsts, A, consts, out, n,
+                                              st));
   return 0;
 }
 

@@ -6,25 +6,32 @@ elementwise field ops (`ops/poseidon.py::permute_batch`,
 `ops/nil_poseidon.py::permute_batch`) and leaves the fusion to its compiler;
 composed from `limbs.mont_mul` calls here it would be some 1,200 launches a
 permutation. Source: `csrc/poseidon.cu`, which says what bounds each form.
-A state moves 6*NL*4 bytes for about 830 Montgomery products: the
+A state moves 6*NL*4 bytes for hundreds of Montgomery products: the
 operations bound it, and on small levels their latency.
 
 - `poseidon_permute_hopper(pp, ins, adds, lane0_only)` picks one of two
   forms by the number of states n: up to `SHARED_MAX`, three threads a
-  state (`form="shared"`, 390 products in sequence instead of 828: small
-  levels are bound by that latency); above, one thread a state
-  (`form="lanes"`, the fewest products: large levels are bound by the
-  rate). A caller may name the form.
+  state (`form="shared"`: the textbook schedule, 390 products in sequence,
+  the shortest chain; small levels are bound by that latency); above, one
+  thread a state (`form="lanes"`: the fewest instructions, large levels are
+  bound by the integer rate). A caller may name the form.
 - `poseidon_tree_hopper(pp, digests)`: a Merkle tree's last levels, from at
   most `TREE_MAX` states down to the root, in ONE launch of one block (the
   shared form with a barrier between levels); every level's digests come
   back as their own plane.
 
 One entry serves both flavours. The parameter object `pp` carries the
-schedule as data: `round_constants` (rounds x 3 ints), `mds` (3 x 3 ints),
+schedule: `round_constants` (rounds x 3 ints), `mds` (3 x 3 ints),
 `alpha`, `partial_rounds` (the half-open range of rounds whose S-box touches
 element 0 only) and `rc_first` (True: add rc -> S-box -> MDS, the original
-Poseidon; False: S-box -> MDS -> add rc, the nil flavour).
+Poseidon; False: S-box -> MDS -> add rc, the nil flavour). The shared and
+tree forms read it as the dense table (`_const_words`). The lanes form
+reads its own (`_lanes_words`): in the original flavour the same
+permutation with sparse partial rounds (`sparse_schedule`, built here in
+Python integers and cached per parameter set: 600 products a state instead
+of 828 for bls12-381 Fr), in the nil flavour the dense table; it reduces
+each row of a mix once where `row_reduced_once`. `lanes_counts` counts
+what each form issues and the floor of the permutation.
 
 State layout: (NL, 3, n), limb axis first, lanes innermost. The three
 elements are given as separate (NL, n) planes with any strides, so a state
@@ -55,22 +62,145 @@ LAUNCHES = {"poseidon": 0, "poseidon_shared": 0, "poseidon_tree": 0}
 ELEMENTS = {"poseidon": 0, "poseidon_shared": 0, "poseidon_tree": 0}
 
 # states up to which `poseidon_permute_hopper` takes three threads a state:
-# where that form's shorter chain beats the one-thread form's fewer products
-# (`chip_smoke.py` times both forms from 64 to 2^17 states; on an H100,
-# shared against one thread: 0.189 / 0.376 ms up to 2^12, 0.262 / 0.380 at
-# 2^13, 0.507 / 0.380 at 2^14, 2.970 / 2.263 at 2^17)
-SHARED_MAX = 1 << 13
+# where that form's shorter chain beats the lanes form (`chip_smoke.py`
+# times both forms from 64 to 2^17 states). On an H100 (700 W), shared
+# against lanes in one run: 0.1891 / 0.2218 ms at 64 states, 0.1898 /
+# 0.2226 at 2^12, 0.2617 / 0.2230 at 2^13, 0.5067 / 0.2231 at 2^14. Before
+# the lanes form's redesign (0.380 ms at 2^13) the limit was 2^13.
+SHARED_MAX = 1 << 12
 TREE_MAX = 64             # states at the first level the tree form takes
 _FORMS = {"lanes": (0, "poseidon"), "shared": (1, "poseidon_shared")}
 
 
 def products_per_state(pp) -> int:
-    """Montgomery products one permutation does on a state: the S-boxes
-    (by square-and-multiply on alpha's bits) and nine for every MDS mix."""
+    """Montgomery products the textbook schedule does on a state (the
+    shared and tree forms, and the lanes form before its redesign): the
+    S-boxes (by square-and-multiply on alpha's bits) and nine for every MDS
+    mix."""
     sbox = pp.alpha.bit_length() - 1 + bin(pp.alpha).count("1") - 1
     rounds = len(pp.round_constants)
     lo, hi = pp.partial_rounds
     return (3 * (rounds - (hi - lo)) + (hi - lo)) * sbox + 9 * rounds
+
+
+def row_reduced_once(fs) -> bool:
+    """Whether a row of three products is reduced once (`csrc/field.cuh::
+    mont_dot3`): where R = 2^(16 NL) is a whole number of 32-bit words (NL
+    even) and p < R/2, so that the row's sum reduces below 2.5p. Elsewhere
+    (R splits a word, or p fills its top word) each product is reduced.
+    `FieldShape`'s `half_top` and `full_top` encode the same rule by the
+    word count of the fields the kernels are built for."""
+    return fs.nl % 2 == 0 and 2 * fs.p < 1 << (16 * fs.nl)
+
+
+def lanes_counts(pp) -> dict:
+    """What a state's permutation costs, in 32-bit multiply-add
+    instructions by the count `chip_smoke.py::mont_ops` uses (a word
+    product two, a reduction 2 NW^2 + 2 NW; a general product with its
+    reduction 2 NW (2 NW + 1), 272 at NW = 8):
+
+    - `instructions`: what the lanes form issues. Original flavour: full
+      rounds with three S-boxes and three dense rows, partial rounds with
+      one S-box, one row of three and two single products (the sparse
+      matrix); the nil flavour dense. Squarings are general products; a
+      row of three is reduced once where `row_reduced_once`, else each
+      product is.
+    - `floor_instructions`: what the function needs at least, the bound of
+      every form: the same schedule with a squaring at NW (NW + 1) (its
+      NW (NW + 1) / 2 word products) and one reduction a row in every
+      field.
+    - `textbook_instructions`: the textbook schedule (`products_per_state`,
+      every product reduced), which the shared and tree forms run."""
+    nw = K.words(pp.fs.nl)
+    squares = pp.alpha.bit_length() - 1
+    sbox = squares + bin(pp.alpha).count("1") - 1
+    lo, hi = pp.partial_rounds
+    partial = hi - lo
+    full = len(pp.round_constants) - partial
+    products = full * (3 * sbox + 9) + partial * (sbox + 5)
+    squarings = (3 * full + partial) * squares
+    rows = full * (3 * sbox + 3) + partial * (sbox + 3)
+    reductions = rows if row_reduced_once(pp.fs) else products
+    reduce = 2 * nw * nw + 2 * nw
+    return {"products": products, "squarings": squarings,
+            "reductions": reductions,
+            "instructions": products * 2 * nw * nw + reductions * reduce,
+            "floor_instructions": (products - squarings) * 2 * nw * nw
+            + squarings * nw * (nw + 1) + rows * reduce,
+            "textbook_products": products_per_state(pp),
+            "textbook_instructions": products_per_state(pp)
+            * 2 * nw * (2 * nw + 1)}
+
+
+def _mat(a, b, p):
+    return [[sum(a[i][k] * b[k][j] for k in range(len(b))) % p
+             for j in range(len(b[0]))] for i in range(len(a))]
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_schedule(pp):
+    """The original flavour's permutation with sparse partial rounds
+    (Grassi et al., the Poseidon paper, eprint 2019/458, Appendix B), in
+    Python integers, equal to it on every input. Returns (full_rc, mds,
+    pre, partial):
+
+    - full_rc: the rc vector of each full round in order, the first full
+      round after the partial ones carrying the constants the partial
+      rounds pushed forward;
+    - mds: the matrix of every full round but the last before the partial
+      ones, which takes `pre` (the dense pre-sparse matrix);
+    - partial: for each partial round (k, m00, w1, w2, v1, v2): add k to
+      element 0, raise element 0 to alpha, then
+      s0' = m00 s0 + w1 s1 + w2 s2, s1' = s1 + v1 s0, s2' = s2 + v2 s0.
+
+    Derivation. Going back from the last partial round, the round's matrix
+    N (M at first) factors as N = M'' M' with M' = diag(1, N11), which
+    leaves element 0 alone and so commutes with a partial S-box, and M''
+    sparse: m00 = N00, (w1, w2) = N[0][1:] N11^-1, (v1, v2) = N[1:][0]. M'
+    moves into the round before, whose matrix becomes M' M; the last full
+    round before the partial ones keeps it as `pre`, and each partial
+    round's rc vector is carried through its M'. Then each partial round
+    keeps element 0 of its constants and hands the rest, through its sparse
+    matrix, on to the next round's, and the last one to the next full
+    round."""
+    p = pp.fs.p
+    lo, hi = pp.partial_rounds
+    rounds = len(pp.round_constants)
+    if pp.t != 3 or not pp.rc_first or lo < 1 or (hi > lo and hi >= rounds):
+        raise ValueError("sparse_schedule: the original flavour, width 3, "
+                         "with full rounds before and after the partial "
+                         "ones")
+    mds = [[c % p for c in row] for row in pp.mds]
+    rc = [[c % p for c in r] for r in pp.round_constants]
+    blocks, rows = [None] * (hi - lo), [None] * (hi - lo)
+    nxt = [[1, 0], [0, 1]]
+    for r in reversed(range(lo, hi)):
+        n = _mat([[1, 0, 0], [0] + nxt[0], [0] + nxt[1]], mds, p)
+        n11 = [n[1][1:], n[2][1:]]
+        det = (n11[0][0] * n11[1][1] - n11[0][1] * n11[1][0]) % p
+        if det == 0:
+            raise ValueError("sparse_schedule: a singular 2x2 block")
+        di = pow(det, -1, p)
+        inv = [[n11[1][1] * di % p, -n11[0][1] * di % p],
+               [-n11[1][0] * di % p, n11[0][0] * di % p]]
+        w = _mat([n[0][1:]], inv, p)[0]
+        rows[r - lo] = (n[0][0], w[0], w[1], n[1][0], n[2][0])
+        blocks[r - lo] = nxt = n11
+    pre = _mat([[1, 0, 0], [0] + nxt[0], [0] + nxt[1]], mds, p)
+    carry, partial = [0, 0, 0], []
+    for r in range(lo, hi):
+        a, c = blocks[r - lo], rc[r]
+        v = [(c[0] + carry[0]) % p,
+             (a[0][0] * c[1] + a[0][1] * c[2] + carry[1]) % p,
+             (a[1][0] * c[1] + a[1][1] * c[2] + carry[2]) % p]
+        m00, w1, w2, v1, v2 = rows[r - lo]
+        partial.append((v[0], m00, w1, w2, v1, v2))
+        carry = [(w1 * v[1] + w2 * v[2]) % p, v[1], v[2]]
+    full_rc = [tuple(rc[r]) for r in range(lo)]
+    full_rc += [tuple((c + d) % p for c, d in zip(rc[r], carry))
+                if r == hi else tuple(rc[r]) for r in range(hi, rounds)]
+    return (tuple(full_rc), tuple(map(tuple, mds)), tuple(map(tuple, pre)),
+            tuple(partial))
 
 
 @functools.lru_cache(maxsize=None)
@@ -99,11 +229,31 @@ def _mds_table(pp, device: str) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _const_words(pp, device: str) -> torch.Tensor:
-    """The table the kernel stages in shared memory: (rounds*3 + 9, NW)
-    int32, digit pairs fused to 32-bit words."""
+    """The table the shared and tree forms, and the lanes form of the nil
+    flavour, stage in shared memory: (rounds*3 + 9, NW) int32, digit pairs
+    fused to 32-bit words."""
     words = K.fuse_words(_const_digits_np(pp)).T
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)) \
         .to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes_words(pp, device: str) -> torch.Tensor:
+    """The lanes form's table. Nil flavour: `_const_words`. Original
+    flavour, `sparse_schedule`'s: the full rounds' rc vectors (3 a round),
+    the matrix, the pre-sparse matrix (9 each), then (k, m00, w1, w2, v1,
+    v2) for each partial round; (R_F*3 + 18 + R_P*6, NW) int32, 384 rows
+    (12 KB at NW = 8) for 8 full and 57 partial rounds."""
+    if not pp.rc_first:
+        return _const_words(pp, device)
+    full_rc, mds, pre, partial = sparse_schedule(pp)
+    flat = [c for rc in full_rc for c in rc]
+    flat += [c for row in mds for c in row] + [c for row in pre for c in row]
+    flat += [c for row in partial for c in row]
+    fs = pp.fs
+    digits = L.pack_ints(fs, [c % fs.p * fs.R % fs.p for c in flat])
+    words = np.ascontiguousarray(K.fuse_words(digits).T).view(np.int32)
+    return torch.from_numpy(words).to(device)
 
 
 def _schedule(pp, lane0_only: bool):
@@ -216,10 +366,11 @@ def poseidon_permute_hopper(pp, ins, adds=(None, None),
     ptrs, strides = plane_args(ins, adds)
     out = torch.empty((fs.nl, n) if lane0_only else (fs.nl, 3, n),
                       dtype=torch.int32, device=device)
+    table = _lanes_words if form == "lanes" else _const_words
     code = K.entry("zk_poseidon_permute")(
         nw, fconsts, ptrs, strides, _schedule(pp, lane0_only),
-        _const_words(pp, str(device)).data_ptr(), out.data_ptr(), n,
-        code_form, K.stream_ptr())
+        table(pp, str(device)).data_ptr(), out.data_ptr(), n, code_form,
+        K.stream_ptr())
     K.check(code, "zk_poseidon_permute")
     LAUNCHES[name] += 1
     ELEMENTS[name] += n

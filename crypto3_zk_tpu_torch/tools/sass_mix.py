@@ -5,7 +5,7 @@
 `cuobjdump -sass` of a built library (`kernels.py`) lists each kernel's
 instructions. This module counts them by the pipe that executes them on a
 Hopper SM, with a loop's body counted once a trip (the one backward branch
-of the kernel; a kernel with more than one loop is refused):
+of the kernel; where a kernel has more loops, each is given its count):
 
 - `fma`: the IMAD forms (IMAD, IMAD.MOV, IMAD.IADD, IMAD.SHL, IMAD.WIDE,
   ...) and IMUL, issued to the FMA pipe;
@@ -84,30 +84,46 @@ def disassemble(library: str) -> dict[str, list[tuple[int, str, str]]]:
                                 check=True).stdout)
 
 
-def mix(instructions: list[tuple[int, str, str]], trips: int) -> dict:
-    """Instructions a thread runs, by pipe, with the body of the kernel's
-    one loop (between a backward branch and its target) run `trips` times;
-    a branch to itself (the end of a kernel) is not a loop."""
-    loops = []
+def loops(instructions: list[tuple[int, str, str]]) -> list[tuple[int, int]]:
+    """(start, end) address of each loop, in order of its start: a backward
+    branch and its target; a branch to itself (the end of a kernel) is not
+    a loop."""
+    found = set()
     for addr, op, operands in instructions:
         if op.startswith("BRA"):
             target = re.search(r"0x([0-9a-f]+)", operands)
             if target and int(target.group(1), 16) < addr:
-                loops.append((int(target.group(1), 16), addr))
-    if len(loops) > 1:
-        raise ValueError(f"{len(loops)} loops: the mix needs one at most")
-    if trips > 1 and not loops:
-        raise ValueError("no loop to run more than once")
+                found.add((int(target.group(1), 16), addr))
+    return sorted(found)
+
+
+def mix(instructions: list[tuple[int, str, str]], trips) -> dict:
+    """Instructions a thread runs, by pipe. `trips` is an int, the number of
+    times the body of the kernel's one loop runs, or a list with one count
+    a loop in the order `loops` gives (a loop's body in all, in one thread:
+    an inner loop's count is not multiplied by its outer loop's); each
+    instruction counts as often as the innermost loop that holds it."""
+    spans = loops(instructions)
+    if isinstance(trips, int):
+        if len(spans) > 1:
+            raise ValueError(f"{len(spans)} loops: give a count for each")
+        if trips > 1 and not spans:
+            raise ValueError("no loop to run more than once")
+        trips = [trips] * len(spans)
+    if len(trips) != len(spans):
+        raise ValueError(f"{len(spans)} loops, {len(trips)} counts")
     counts = {"alu": 0, "fma": 0, "mem": 0, "uniform": 0, "control": 0}
     opcodes: dict[str, int] = {}
     for addr, op, _ in instructions:
-        n = trips if loops and loops[0][0] <= addr <= loops[0][1] else 1
+        inner = [(end - start, t) for (start, end), t in zip(spans, trips)
+                 if start <= addr <= end]
+        n = min(inner)[1] if inner else 1
         counts[pipe(op)] += n
         base = op.split(".")[0]
         opcodes[base] = opcodes.get(base, 0) + n
     counts["total"] = sum(counts.values())
     counts["loop_body"] = sum(1 for a, _, _ in instructions
-                              if loops and loops[0][0] <= a <= loops[0][1])
+                              if any(s <= a <= e for s, e in spans))
     counts["top_opcodes"] = dict(sorted(opcodes.items(),
                                         key=lambda kv: -kv[1])[:8])
     return counts
@@ -130,7 +146,7 @@ def max_sm_clock_hz() -> float:
     return float(out.splitlines()[0]) * 1e6
 
 
-def kernel_mix(source: str, kernel: str, trips: int) -> dict:
+def kernel_mix(source: str, kernel: str, trips) -> dict:
     """The mix of `kernel` (a substring of its mangled name) in the current
     library of `source` (built by `kernels.build_all`)."""
     from .. import kernels as K

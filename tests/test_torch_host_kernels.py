@@ -26,6 +26,7 @@ import torch_threads  # noqa: F401  one torch thread a worker
 FQ, FR, BLS = TP.ALT_BN128_FQ, TP.ALT_BN128_FR, TP.BLS12_381_FQ
 GL, MNT4 = TP.GOLDILOCKS, TP.MNT4_FR     # 2 words, p fills its top word;
                                          # 19 digits, R = 2^304
+MNT6 = TP.MNT6_FR                        # 19 digits, Poseidon's x^11
 
 
 @pytest.fixture(scope="module")
@@ -233,10 +234,12 @@ def _poseidon(entry, pp, ins, adds=(None, None), lane0_only=False, form=0):
     nw, consts = K.field_consts(fs)
     ptrs, strides = HH.plane_args(ins, adds)
     out = _filled((fs.nl, n) if lane0_only else (fs.nl, 3, n))
+    # the form's table, as the wrapper picks it: the lanes form's own
+    # (sparse partial rounds in the original flavour), else the dense one
+    table = HH._lanes_words if form == 0 else HH._const_words
     assert entry("zk_poseidon_permute")(
         nw, consts, ptrs, strides, HH._schedule(pp, lane0_only),
-        HH._const_words(pp, "cpu").data_ptr(), out.data_ptr(), n, form,
-        None) == 0
+        table(pp, "cpu").data_ptr(), out.data_ptr(), n, form, None) == 0
     return out
 
 
@@ -246,11 +249,12 @@ def _poseidon_params(flavour):
     if flavour == "nil":
         return NPO.get_params(TP.PALLAS_FQ)
     return PO.get_params({"original": TP.BLS12_381_FR, "original12": BLS,
-                          "goldilocks": GL, "mnt4": MNT4}[flavour])
+                          "goldilocks": GL, "mnt4": MNT4,
+                          "mnt6": MNT6}[flavour])
 
 
 @pytest.mark.parametrize("flavour", ["original", "nil", "original12",
-                                     "goldilocks", "mnt4"])
+                                     "goldilocks", "mnt4", "mnt6"])
 def test_poseidon_kernel_matches_its_plain_version(entry, flavour):
     from crypto3_zk_tpu_torch.ops import hopper_hash as HH
     pp = _poseidon_params(flavour)
@@ -300,6 +304,56 @@ def test_poseidon_kernel_merkle_forms(entry, flavour):
         nw, consts, ptrs, strides, HH._schedule(pp, False),
         HH._const_words(pp, "cpu").data_ptr(), got.data_ptr(), 35, 2,
         None) != 0
+
+
+@pytest.mark.parametrize("flavour", ["original", "nil", "original12",
+                                     "goldilocks", "mnt4", "mnt6"])
+def test_poseidon_lanes_form_edge_states(entry, flavour):
+    """One thread a state on edge states (every element p - 1, every
+    element 0, p - 1 beside 0) and on lane counts that end inside a block
+    of 128 states (129 and 200), against the plain version and the scalar
+    permutation; and the schedules the form has no instance for are
+    refused."""
+    from crypto3_zk_tpu_torch.ops import hopper_hash as HH
+    pp = _poseidon_params(flavour)
+    fs = pp.fs
+    # the rule `lanes_counts` reckons reductions by is the one `field.cuh`'s
+    # `mont_dot3` compiles: one reduction a row but where p fills its top
+    # word (`FieldShape::full_top`, 2 words) or R splits a word (`half_top`,
+    # 10 words)
+    assert HH.row_reduced_once(fs) == (K.words(fs.nl) not in (2, 10))
+    n = 200
+    state = _rand(fs, (3, n), 90)
+    edges = {0: [fs.p - 1] * 3, 1: [0, 0, 0], 128: [fs.p - 1, 0, fs.p - 1],
+             n - 1: [fs.p - 1] * 3}
+    for lane, vals in edges.items():
+        for i, v in enumerate(vals):
+            state[:, i, lane] = TL.encode(fs, [v], "cpu")[:, 0]
+    want = HH.poseidon_permute_plain(pp, (state[:, 0], state[:, 1],
+                                          state[:, 2]))
+    for m in (129, n):            # lanes are independent: a prefix each
+        part = state[:, :, :m]
+        got = _poseidon(entry, pp, (part[:, 0], part[:, 1], part[:, 2]))
+        assert torch.equal(got, want[:, :, :m])
+    mod = __import__(type(pp).__module__, fromlist=["permute_host"])
+    for lane, vals in edges.items():
+        assert [TL.decode(fs, want[:, i, lane:lane + 1])[0]
+                for i in range(3)] == mod.permute_host(pp, vals)
+    nw, consts = K.field_consts(fs)
+    ptrs, strides = HH.plane_args((state[:, 0], state[:, 1], state[:, 2]),
+                                  (None, None))
+    table = HH._lanes_words(pp, "cpu").data_ptr()
+    rounds = len(pp.round_constants)
+    # sched[1], [2], [3] = p_begin, p_end, alpha. Original flavour: no full
+    # round before the partial ones, none after them, an alpha without an
+    # instance; nil flavour: a partial round, another alpha than 7
+    for at, value in ((1, 0), (2, rounds), (3, 13)) if pp.rc_first else \
+            ((2, 1), (3, 5)):
+        bad = HH._schedule(pp, False)
+        bad[at] = value
+        assert entry("zk_poseidon_permute")(
+            nw, consts, ptrs, strides, bad, table, want.data_ptr(), n, 0,
+            None) != 0
 
 
 @pytest.mark.parametrize("flavour", ["original", "nil", "goldilocks"])

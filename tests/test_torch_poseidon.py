@@ -146,3 +146,76 @@ def test_wrapper_forms_and_refusals():
     with pytest.raises(TypeError):
         HH.poseidon_permute_hopper(pp, (s[0].to(torch.int64), None, None))
     assert HH.LAUNCHES == launches          # the CPU never counts a launch
+
+
+def _table_ints(fs, words):
+    """(entries, NW) int32 fused words in Montgomery form -> ints."""
+    w = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    return [sum(int(x) << (32 * j) for j, x in enumerate(row)) * fs.Rinv
+            % fs.p for row in w]
+
+
+def _permute_by_lanes_table(pp, state):
+    """The original flavour evaluated from the lanes form's table as the
+    kernel lays it out: the full rounds' rc vectors, M, the pre-sparse
+    matrix, then (k, m00, w1, w2, v1, v2) for each partial round."""
+    fs, p = pp.fs, pp.fs.p
+    t = _table_ints(fs, HH._lanes_words(pp, "cpu"))
+    lo, hi = pp.partial_rounds
+    full = len(pp.round_constants) - (hi - lo)
+    assert len(t) == 3 * full + 18 + 6 * (hi - lo)
+    mds, pre = t[3 * full:3 * full + 9], t[3 * full + 9:3 * full + 18]
+    s = list(state)
+    for f in range(full):
+        x = [pow(s[i] + t[3 * f + i], pp.alpha, p) for i in range(3)]
+        m = pre if f == lo - 1 else mds
+        s = [sum(m[3 * i + j] * x[j] for j in range(3)) % p
+             for i in range(3)]
+        if f == lo - 1:
+            for q in range(hi - lo):
+                k, m00, w1, w2, v1, v2 = t[3 * full + 18 + 6 * q:
+                                           3 * full + 24 + 6 * q]
+                x0 = pow(s[0] + k, pp.alpha, p)
+                s = [(m00 * x0 + w1 * s[1] + w2 * s[2]) % p,
+                     (s[1] + v1 * x0) % p, (s[2] + v2 * x0) % p]
+    return s
+
+
+@pytest.mark.parametrize("name", ["BLS12_381_FR", "BLS12_381_FQ",
+                                  "ALT_BN128_FR", "ALT_BN128_FQ",
+                                  "GOLDILOCKS", "MNT4_FR", "MNT6_FR",
+                                  "PALLAS_FQ", "PALLAS_FR", "VESTA_FQ",
+                                  "VESTA_FR"])
+def test_sparse_schedule_table_equals_the_reference(name):
+    """The lanes form's table (sparse partial rounds), evaluated on Python
+    integers, is the reference's permutation for every original parameter
+    set."""
+    ref = PO.get_params(getattr(P, name))
+    pp = TPO.get_params(getattr(TP, name))
+    cols = _states(pp.fs.p, 16)
+    for lane in range(N):
+        state = [c[lane] for c in cols]
+        want = PO.permute_host(ref, state)
+        assert _permute_by_lanes_table(pp, state) == want
+
+
+def test_lanes_tables_and_counts():
+    """The nil flavour's lanes table is the dense one; the original one is
+    384 entries; the counts the lanes form's bound is reckoned from."""
+    npp = TNPO.get_params(TP.PALLAS_FQ)
+    assert torch.equal(HH._lanes_words(npp, "cpu"),
+                       HH._const_words(npp, "cpu"))
+    pp = TPO.get_params(TP.BLS12_381_FR)
+    assert HH._lanes_words(pp, "cpu").shape == (384, 8)
+    assert HH.lanes_counts(pp) == {
+        "products": 600, "squarings": 162, "reductions": 438,
+        "instructions": 139_872, "floor_instructions": 130_800,
+        "textbook_products": 828, "textbook_instructions": 225_216}
+    nil = HH.lanes_counts(npp)
+    assert (nil["products"], nil["squarings"], nil["reductions"]) == \
+        (55 * 21, 55 * 6, 55 * 15)
+    # the 2-word instance reduces every product
+    gl = HH.lanes_counts(TPO.get_params(TP.GOLDILOCKS))
+    assert gl["reductions"] == gl["products"]
+    with pytest.raises(ValueError):
+        HH.sparse_schedule(npp)

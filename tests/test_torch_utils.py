@@ -595,3 +595,19 @@ def test_sass_mix_counts_a_loop_once_a_trip():
     body = kernels["_Z20sha256_blocks_kernelPKjxiPj"]
     with pytest.raises(ValueError):          # two loops
         SM.mix(body + [(0xc0, "BRA", "0x10")], trips=2)
+
+
+def test_sass_mix_counts_each_loop_by_its_own_trips():
+    """Several loops, one nested in another: each instruction counts as
+    often as the innermost loop that holds it runs in all."""
+    from crypto3_zk_tpu_torch.tools import sass_mix as SM
+    body = [(0x00, "IADD3", ""), (0x10, "IMAD", ""),      # outer loop ...
+            (0x20, "IMAD", ""), (0x30, "BRA", "0x20"),    # ... inner loop
+            (0x40, "LOP3", ""), (0x50, "BRA", "0x10"),    # outer back edge
+            (0x60, "EXIT", ""), (0x70, "BRA", "0x70")]
+    assert SM.loops(body) == [(0x10, 0x50), (0x20, 0x30)]
+    per = SM.mix(body, trips=[8, 57])
+    assert (per["alu"], per["fma"], per["control"], per["total"]) == \
+        (1 + 8, 8 + 57, 57 + 8 + 1 + 1, 1 + 8 + 57 + 57 + 8 + 8 + 1 + 1)
+    with pytest.raises(ValueError):          # a count for each loop
+        SM.mix(body, trips=[8])
