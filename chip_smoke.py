@@ -712,7 +712,8 @@ POSEIDON_SIZES = (64, 1 << 12, 1 << 13, 1 << 14, 1 << 17)
 def check_poseidon(torch, gen, compare, measure, rows, product_ms):
     """Kernel 5 against its plain version in each form (one thread a state,
     three threads a state, the tree's tail in one launch): both round
-    orders, both word counts, every input form the Merkle layer uses; each
+    orders, both word counts, every input form the Merkle layer uses, and
+    the x^11 instance (MNT6 Fr); each
     form's time at `POSEIDON_SIZES` states; the tree form on 2 * TREE_MAX
     digests;
     and one whole tree of 2^17 leaves down to the root, the new way and the
@@ -778,8 +779,8 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
             f"floor {c['floor_instructions']} multiply-add instructions; "
             f"the lanes form issues {c['instructions']} ({c['products']} "
             f"products, {c['squarings']} squarings among them, "
-            f"{c['reductions']} reductions); the textbook schedule (shared "
-            f"and tree forms, the lanes form before) "
+            f"{c['reductions']} reductions); the textbook schedule (the "
+            f"reference, which no form runs) "
             f"{c['textbook_products']} products, "
             f"{c['textbook_instructions']} instructions")
         for form in ("lanes", "shared"):
@@ -804,6 +805,17 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
             err["tree"] = max(err["tree"], compare(
                 "poseidon(tree)", fs, tree, tree_plain,
                 (rand_field(torch, fs, (n2,), gen),)))
+    # the x^11 instance (MNT6 Fr, 10 words), on no path of this script
+    pp = PO.get_params(P.MNT6_FR)
+    fs = pp.fs
+    for form in ("lanes", "shared"):
+        for n in (1, 33, 4096):
+            err[form] = max(err[form], compare(
+                f"poseidon({form})", fs, forms(form)[0], permute_plain,
+                (rand_field(torch, fs, (3, n), gen),)))
+    err["tree"] = max(err["tree"], compare(
+        "poseidon(tree)", fs, tree, tree_plain,
+        (rand_field(torch, fs, (2 * HH.TREE_MAX,), gen),)))
     # the Merkle forms at the LPC path's own top shapes: the largest node
     # level (strided even and odd digests, no third element, element 0 out)
     # and a two-row leaf sponge (no state, two absorb planes, element 0 out)
@@ -820,14 +832,18 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
             f"poseidon({form}, absorb)", fs, sponge, sponge_plain,
             (rand_field(torch, fs, (top,), gen),
              rand_field(torch, fs, (top,), gen))))
-    # each form timed at each size; the row's own numbers at the size where
+    # each form timed at each size; the row's own numbers at a size where
     # the wrapper picks it (2^17 for one thread a state, as in earlier runs;
-    # 2^12 for three threads a state). Every form's operations are the
-    # permutation's floor of multiply-add instructions
-    # (`hopper_hash.lanes_counts`); the lanes form's chain is that floor in
-    # general products' worth, the shared form's its own 6 products a round.
+    # 2^12 for three threads a state, inside the wrapper's range up to
+    # `SHARED_MAX` = 2^13). Every form's operations are the permutation's
+    # floor of multiply-add instructions (`hopper_hash.lanes_counts`); the
+    # lanes form's chain is that floor in general products' worth, the
+    # shared form's its products in sequence (`hopper_hash.shared_chain`:
+    # 3 a partial round and 4 a full one at x^5, a dot counted as one
+    # product), beside the textbook schedule's 6 a round.
+    shared_counts = HH.shared_counts(pp)
     chain = {"lanes": floor / mont_ops(fs.nl),
-             "shared": len(pp.round_constants) * 6}
+             "shared": shared_counts["chain"]}
     form_rows = {}
     for form, name, n_row in (("lanes", "poseidon", top),
                               ("shared", "poseidon_shared", 1 << 12)):
@@ -863,6 +879,17 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
                 f"{row['textbook_int_bound_ms']:.4f} ms")
         row["products_in_sequence"] = chain[form]
         row["latency_bound_ms"] = chain[form] * product_ms
+        if form == "shared":
+            row["counts_per_state"] = shared_counts
+            row["textbook_chain_latency_bound_ms"] = \
+                shared_counts["textbook_chain"] * product_ms
+            log(f"  poseidon (shared): {chain[form]} products in sequence, "
+                f"latency bound {row['latency_bound_ms']:.4f} ms (the "
+                f"textbook chain's {shared_counts['textbook_chain']}: "
+                f"{row['textbook_chain_latency_bound_ms']:.4f} ms); a state "
+                f"{shared_counts['products']} products, "
+                f"{shared_counts['reductions']} reductions, "
+                f"{shared_counts['instructions']} instructions")
         for n in POSEIDON_SIZES:
             states = [rand_field(torch, fs, (3, n), gen)
                       for _ in range(max(1, -(-FLUSH_BYTES
@@ -897,8 +924,11 @@ def check_poseidon(torch, gen, compare, measure, rows, product_ms):
     row["form"] = "tree"
     row["products_in_sequence"] = levels * chain["shared"]
     row["latency_bound_ms"] = levels * chain["shared"] * product_ms
+    row["textbook_chain_latency_bound_ms"] = \
+        levels * shared_counts["textbook_chain"] * product_ms
     log(f"  poseidon_tree: {levels} levels, latency bound "
-        f"{row['latency_bound_ms']:.4f} ms")
+        f"{row['latency_bound_ms']:.4f} ms (the textbook chain's "
+        f"{row['textbook_chain_latency_bound_ms']:.4f} ms)")
 
     # one whole tree of 2^17 leaf digests down to the root: what
     # `merkle._device_levels` launches, against one launch of the one-thread

@@ -11,10 +11,11 @@ operations bound it, and on small levels their latency.
 
 - `poseidon_permute_hopper(pp, ins, adds, lane0_only)` picks one of two
   forms by the number of states n: up to `SHARED_MAX`, three threads a
-  state (`form="shared"`: the textbook schedule, 390 products in sequence,
-  the shortest chain; small levels are bound by that latency); above, one
-  thread a state (`form="lanes"`: the fewest instructions, large levels are
-  bound by the integer rate). A caller may name the form.
+  state (`form="shared"`: 4 products in sequence a full round at x^5 and
+  3 a partial one, `shared_chain`; small levels are bound by that latency
+  and one warp's multiply-adds); above, one thread a state
+  (`form="lanes"`: the fewest instructions, large levels are bound by the
+  integer rate). A caller may name the form.
 - `poseidon_tree_hopper(pp, digests)`: a Merkle tree's last levels, from at
   most `TREE_MAX` states down to the root, in ONE launch of one block (the
   shared form with a barrier between levels); every level's digests come
@@ -24,14 +25,15 @@ One entry serves both flavours. The parameter object `pp` carries the
 schedule: `round_constants` (rounds x 3 ints), `mds` (3 x 3 ints),
 `alpha`, `partial_rounds` (the half-open range of rounds whose S-box touches
 element 0 only) and `rc_first` (True: add rc -> S-box -> MDS, the original
-Poseidon; False: S-box -> MDS -> add rc, the nil flavour). The shared and
-tree forms read it as the dense table (`_const_words`). The lanes form
-reads its own (`_lanes_words`): in the original flavour the same
+Poseidon; False: S-box -> MDS -> add rc, the nil flavour). Every form
+reads it as one table (`_table_words`): in the original flavour the same
 permutation with sparse partial rounds (`sparse_schedule`, built here in
 Python integers and cached per parameter set: 600 products a state instead
-of 828 for bls12-381 Fr), in the nil flavour the dense table; it reduces
-each row of a mix once where `row_reduced_once`. `lanes_counts` counts
-what each form issues and the floor of the permutation.
+of 828 for bls12-381 Fr in the lanes form), in the nil flavour the dense
+table; a row of a mix is reduced once where `row_reduced_once`.
+`lanes_counts` and `shared_counts` count what each form issues and the
+floor of the permutation, `shared_chain` the shared form's products in
+sequence.
 
 State layout: (NL, 3, n), limb axis first, lanes innermost. The three
 elements are given as separate (NL, n) planes with any strides, so a state
@@ -62,19 +64,22 @@ LAUNCHES = {"poseidon": 0, "poseidon_shared": 0, "poseidon_tree": 0}
 ELEMENTS = {"poseidon": 0, "poseidon_shared": 0, "poseidon_tree": 0}
 
 # states up to which `poseidon_permute_hopper` takes three threads a state:
-# where that form's shorter chain beats the lanes form (`chip_smoke.py`
-# times both forms from 64 to 2^17 states). On an H100 (700 W), shared
-# against lanes in one run: 0.1891 / 0.2218 ms at 64 states, 0.1898 /
-# 0.2226 at 2^12, 0.2617 / 0.2230 at 2^13, 0.5067 / 0.2231 at 2^14. Before
-# the lanes form's redesign (0.380 ms at 2^13) the limit was 2^13.
-SHARED_MAX = 1 << 12
-TREE_MAX = 64             # states at the first level the tree form takes
+# where that form beats the lanes form (`tools/poseidon_times.py` and
+# `chip_smoke.py` time both from 64 to 2^17 states). On an H100 (700 W),
+# shared against lanes in one run, round robin: 0.1421 / 0.2194 ms at 64
+# states, 0.1427 / 0.2200 at 2^12, 0.1997 / 0.2210 at 2^13 (two warps on
+# some sub-partitions), 0.3933 / 0.2219 at 2^14.
+SHARED_MAX = 1 << 13
+# states at the first level the tree form takes: on the same card, with the
+# full rounds then folded at x^5, the tree from 32 states (4 warps) 0.9002
+# ms and a shared launch on 64 0.1502, against the tree from 64 (7 warps)
+# 1.1197 (`csrc/poseidon.cu`)
+TREE_MAX = 32
 _FORMS = {"lanes": (0, "poseidon"), "shared": (1, "poseidon_shared")}
 
 
 def products_per_state(pp) -> int:
-    """Montgomery products the textbook schedule does on a state (the
-    shared and tree forms, and the lanes form before its redesign): the
+    """Montgomery products the textbook schedule does on a state: the
     S-boxes (by square-and-multiply on alpha's bits) and nine for every MDS
     mix."""
     sbox = pp.alpha.bit_length() - 1 + bin(pp.alpha).count("1") - 1
@@ -110,7 +115,7 @@ def lanes_counts(pp) -> dict:
       NW (NW + 1) / 2 word products) and one reduction a row in every
       field.
     - `textbook_instructions`: the textbook schedule (`products_per_state`,
-      every product reduced), which the shared and tree forms run."""
+      every product reduced)."""
     nw = K.words(pp.fs.nl)
     squares = pp.alpha.bit_length() - 1
     sbox = squares + bin(pp.alpha).count("1") - 1
@@ -130,6 +135,57 @@ def lanes_counts(pp) -> dict:
             "textbook_products": products_per_state(pp),
             "textbook_instructions": products_per_state(pp)
             * 2 * nw * (2 * nw + 1)}
+
+
+def sbox_split(alpha: int) -> tuple[int, int]:
+    """(K, REST) with alpha = 2^K + REST, REST 1 or 3 (`csrc/poseidon.cu::
+    SboxSplit`): x^5 = x^4 x, x^7 = x^4 x^3, x^11 = x^8 x^3. The shared
+    forms' partial rounds fold a mix constant m into the last factor,
+    m x^alpha = x^(2^K) (m x^REST)."""
+    k = alpha.bit_length() - 1
+    rest = alpha - (1 << k)
+    if rest not in (1, 3):
+        raise ValueError(f"poseidon: alpha {alpha} is not 2^K + 1 or 2^K + 3")
+    return k, rest
+
+
+def shared_chain(pp) -> int:
+    """Montgomery products in sequence in a permutation by the shared and
+    tree forms (three threads a state), the dot (`mont_dot3`) counted as
+    one product's latency, so a lower bound: a partial round is K
+    squarings and one dot, the mix constant folded into the S-box's last
+    product; a full round raises its element whole, K + 1 products in
+    sequence (x^3 beside the squarings where alpha = 2^K + 3), then the dot
+    (`csrc/poseidon.cu::full_round_shared`). 203 for bls12-381 Fr (57 x 3 +
+    8 x 4), 220 for the nil Pallas Fq set (55 full rounds x 4). The textbook
+    schedule with three threads a state was 6 a round (`textbook_chain`)."""
+    k, _ = sbox_split(pp.alpha)
+    lo, hi = pp.partial_rounds
+    full = len(pp.round_constants) - (hi - lo)
+    return (hi - lo) * (k + 1) + full * (k + 2)
+
+
+def shared_counts(pp) -> dict:
+    """What the shared form issues a state, its three threads together, by
+    the count of `lanes_counts`: in every round a thread does K + 1
+    products before its dot (K + 2 where REST = 3): a full round's raise
+    its element whole, a partial round's square y K times and form its
+    coefficient times y^REST. A dot is three products and one reduction
+    where `row_reduced_once`, else three of each. Also `chain`
+    (`shared_chain`) and `textbook_chain` (6 products a round, the textbook
+    schedule with three threads a state)."""
+    nw = K.words(pp.fs.nl)
+    k, rest = sbox_split(pp.alpha)
+    rounds = len(pp.round_constants)
+    before_dot = k + 1 + (rest == 3)
+    dot_reductions = 1 if row_reduced_once(pp.fs) else 3
+    products = 3 * rounds * (before_dot + 3)
+    reductions = 3 * rounds * (before_dot + dot_reductions)
+    return {"products": products, "reductions": reductions,
+            "instructions": products * 2 * nw * nw
+            + reductions * (2 * nw * nw + 2 * nw),
+            "chain": shared_chain(pp),
+            "textbook_chain": rounds * 6}
 
 
 def _mat(a, b, p):
@@ -229,17 +285,17 @@ def _mds_table(pp, device: str) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _const_words(pp, device: str) -> torch.Tensor:
-    """The table the shared and tree forms, and the lanes form of the nil
-    flavour, stage in shared memory: (rounds*3 + 9, NW) int32, digit pairs
-    fused to 32-bit words."""
+    """The dense table, the nil flavour's: (rounds*3 + 9, NW) int32, digit
+    pairs fused to 32-bit words."""
     words = K.fuse_words(_const_digits_np(pp)).T
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32)) \
         .to(device)
 
 
 @functools.lru_cache(maxsize=None)
-def _lanes_words(pp, device: str) -> torch.Tensor:
-    """The lanes form's table. Nil flavour: `_const_words`. Original
+def _table_words(pp, device: str) -> torch.Tensor:
+    """The table every form of kernel 5 stages in shared memory. Nil
+    flavour: `_const_words`. Original
     flavour, `sparse_schedule`'s: the full rounds' rc vectors (3 a round),
     the matrix, the pre-sparse matrix (9 each), then (k, m00, w1, w2, v1,
     v2) for each partial round; (R_F*3 + 18 + R_P*6, NW) int32, 384 rows
@@ -366,10 +422,9 @@ def poseidon_permute_hopper(pp, ins, adds=(None, None),
     ptrs, strides = plane_args(ins, adds)
     out = torch.empty((fs.nl, n) if lane0_only else (fs.nl, 3, n),
                       dtype=torch.int32, device=device)
-    table = _lanes_words if form == "lanes" else _const_words
     code = K.entry("zk_poseidon_permute")(
         nw, fconsts, ptrs, strides, _schedule(pp, lane0_only),
-        table(pp, str(device)).data_ptr(), out.data_ptr(), n, code_form,
+        _table_words(pp, str(device)).data_ptr(), out.data_ptr(), n, code_form,
         K.stream_ptr())
     K.check(code, "zk_poseidon_permute")
     LAUNCHES[name] += 1
@@ -419,7 +474,7 @@ def poseidon_tree_hopper(pp, digests: torch.Tensor) -> list[torch.Tensor]:
     outs = (ctypes.c_void_p * len(levels))(*[t.data_ptr() for t in levels])
     code = K.entry("zk_poseidon_tree")(
         nw, fconsts, ptrs, strides, _schedule(pp, True),
-        _const_words(pp, str(digests.device)).data_ptr(), outs, s,
+        _table_words(pp, str(digests.device)).data_ptr(), outs, s,
         len(levels), K.stream_ptr())
     K.check(code, "zk_poseidon_tree")
     LAUNCHES["poseidon_tree"] += 1

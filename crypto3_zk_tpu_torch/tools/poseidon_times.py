@@ -1,46 +1,41 @@
-"""Kernel 5's lanes form (one thread a state) against an earlier form of it,
-and by step, timed on the card.
+"""Kernel 5's three forms against an earlier commit's, timed on the card.
 
     python3 -m crypto3_zk_tpu_torch.tools.poseidon_times --parent DIR
-        [--rounds 5] [--reps 10] [--out f.json]
+        [--rounds 5] [--reps 10] [--out f.json] [--sass-out DIR]
 
 DIR is the `csrc/` directory of the commit to compare with (its
 `poseidon.cu` and headers, e.g. unpacked from `git archive` into a
-directory that `.gitignore` lists). Five builds of `poseidon.cu`, all
+directory that `.gitignore` lists). Two builds of `poseidon.cu`, both
 `nvcc` runs at once, into `build/crypto3_zk_tpu_torch/poseidon_forms/`:
+`parent` (DIR's source) and `new` (this checkout's, as the library builds
+it). Every form of `new` reads `_table_words` (sparse partial rounds in the
+original flavour); the parent's shared and tree forms read it too where
+DIR's source has the sparse partial round (`partial_round_shared`), else
+the dense table (`_const_words`, the textbook schedule).
 
-- `parent`: DIR's source, launched with the dense table (`_const_words`);
-- `new`: this checkout's source as the library builds it, with the lanes
-  form's table (`_lanes_words`: sparse partial rounds in the original
-  flavour);
-- `new_mont_sqr`: the same with the S-box's squarings by a Montgomery
-  squaring instead of the general product (`tools/mont_sqr.cuh`, inserted
-  after `field.cuh`; no kernel of the library uses it);
-- `new_reduce_each`: the same with each product of a mix row reduced on its
-  own (`mont_dot3` as three `mont_mul` and two `add_mod`);
-- `new_6_blocks`: the same with `__launch_bounds__(128, 6)` on the lanes
-  form (at most 80 registers a thread).
-
-Over bls12-381 Fr it times each build at 2^17 states and at 64, 2^12, 2^13
-and 2^14 (where the form is bound by its chain), and `parent` and `new` on
-the nil flavour (Pallas Fq, all rounds full, x^7) at 2^17. Each sample is
-the mean of `--reps` launches by CUDA events, queued behind a spin kernel so
-that it is device time, over input sets that together pass the 50 MB L2;
-`--rounds` rounds visit the builds in an order rotated from round to round.
-Every build's output is held against `poseidon_permute_plain` first, at 64
-and at 2^17 states, exactly. Prints the card's name and power limit,
-`ptxas -v`'s registers and spills of each build's lanes-form instances,
-the SASS mix a state of the bls12-381 Fr instance of `new` and of `parent`
+Over bls12-381 Fr it times the lanes form of both at `SIZES` (64 to 2^14
+states, where the form is bound by its chain, and 2^17), the shared form
+from 32 to 2^17 states and the tree form on a first level of 32 states;
+on the nil flavour (Pallas Fq, all rounds full, x^7) the lanes form at
+2^17 states, the shared form at 2^12 and the tree on 32. Each sample is
+the mean of `--reps` launches by CUDA events, queued behind a spin kernel
+so that it is device time, over input sets that together pass the 50 MB
+L2; `--rounds` rounds visit the cases in an order rotated from round to
+round. Every build's output is held against `poseidon_permute_plain` (the
+tree's against the plain version level by level) first, exactly, at the
+smallest and largest size of each form. Prints the card's name and power
+limit, `ptxas -v`'s registers and spills of each build's instances of
+every form, the SASS mix a state of the bls12-381 Fr lanes-form instance
+of `new` and `parent` and a thread's of the shared form of `new`
 (`tools/sass_mix.py`, each loop by its trips) with the carry predicates
 each loop's IMAD and IADD3 forms name (`carry_chains`), and one JSON
-object: every sample and median (ms). `--sass-out` writes that
-instance's SASS. Needs a CUDA device.
+object: every sample and median (ms). `--sass-out DIR` writes the SASS of
+each build's Poseidon kernels there, one file a build. Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import pathlib
 import re
@@ -57,65 +52,24 @@ from ..ops import poseidon as PO
 from . import sass_mix as SM
 
 SOURCE = "poseidon.cu"
+BUILDS = ("parent", "new")
 SIZES = (64, 1 << 12, 1 << 13, 1 << 14, 1 << 17)
+SHARED_SIZES = (32, 64, 128, 1 << 12, 1 << 13, 1 << 14, 1 << 17)
+TREE_STATES = (32,)
 FLUSH_BYTES = 64 << 20
-
-# Each comparison build is the library's source with text replaced (once
-# each; a replacement that finds nothing fails the build).
-FIELD = '#include "field.cuh"\n'
-SQUARE = "    mont_mul<NW>(acc, acc, acc, F);            // the square\n"
-REDUCE_EACH = r'''
-template <int NW>
-__device__ __forceinline__ void mont_dot3_each(
-    uint32_t (&r)[NW], const uint32_t (&x0)[NW], const uint32_t (&c0)[NW],
-    const uint32_t (&x1)[NW], const uint32_t (&c1)[NW],
-    const uint32_t (&x2)[NW], const uint32_t (&c2)[NW],
-    const FieldConst<NW>& F) {
-  uint32_t t[NW];
-  mont_mul<NW>(r, x0, c0, F);
-  mont_mul<NW>(t, x1, c1, F);
-  add_mod<NW>(r, r, t, F);
-  mont_mul<NW>(t, x2, c2, F);
-  add_mod<NW>(r, r, t, F);
-}
-#define mont_dot3 mont_dot3_each
-'''
-MONT_SQR = (pathlib.Path(__file__).with_name("mont_sqr.cuh").read_text()
-            + "\n")
-LANES = "__global__ void __launch_bounds__(128)\nposeidon_kernel("
-BUILDS = {
-    "parent": None,
-    "new": [],
-    # the S-box's squarings by `mont_sqr.cuh`
-    "new_mont_sqr": [(FIELD, FIELD + MONT_SQR),
-                     (SQUARE, "    mont_sqr<NW>(acc, acc, F);\n")],
-    # each product of a mix row reduced on its own
-    "new_reduce_each": [(FIELD, FIELD + REDUCE_EACH)],
-    # at most 80 registers a thread, so that 6 blocks fit an SM
-    "new_6_blocks": [(LANES, LANES.replace("(128)", "(128, 6)"))],
-}
+# the nil flavour's cases: (form, states)
+NIL_PLAN = (("lanes", 1 << 17), ("shared", 1 << 12), ("tree", 32))
 
 
 def build(parent: pathlib.Path) -> dict:
-    """{build: (entry, ptxas log, library)}, all `nvcc` runs at once, and
-    `rate.cu` (the multiply-add rate loop, for its SASS) as "rate", with no
-    entry."""
+    """{build: ({entry name: entry}, ptxas log, library)}, all `nvcc` runs
+    at once, and `rate.cu` (the multiply-add rate loop, for its SASS) as
+    "rate", with no entry."""
     out_dir = K.build_dir() / "poseidon_forms"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = [("rate", K.CSRC / "rate.cu", K.CSRC)]
-    for name, edits in BUILDS.items():
-        if edits is None:
-            jobs.append((name, parent / SOURCE, parent))
-            continue
-        text = (K.CSRC / SOURCE).read_text()
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"{name}: {old!r} not in {SOURCE}")
-            text = text.replace(old, new, 1)
-        tag = hashlib.sha1(K.headers() + text.encode()).hexdigest()[:12]
-        src = out_dir / f"poseidon_{name}-{tag}.cu"
-        src.write_text(text)
-        jobs.append((name, src, K.CSRC))
+    jobs = [("rate", K.CSRC / "rate.cu", K.CSRC),
+            ("parent", parent / SOURCE, parent),
+            ("new", K.CSRC / SOURCE, K.CSRC)]
     procs, t0 = [], time.perf_counter()
     for name, src, inc in jobs:
         lib = out_dir / f"lib{name}.so"
@@ -133,25 +87,29 @@ def build(parent: pathlib.Path) -> dict:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         print(f"{name}: built in {time.perf_counter() - t0:.1f} s (all "
               f"builds started together)", flush=True)
-        fn = None
+        fns = {}
         if name != "rate":
-            fn = ctypes.CDLL(str(lib)).zk_poseidon_permute
-            fn.argtypes = K.SOURCES[SOURCE]["zk_poseidon_permute"]
-            fn.restype = ctypes.c_int
-        built[name] = (fn, log, lib)
+            cdll = ctypes.CDLL(str(lib))
+            for entry, argtypes in K.SOURCES[SOURCE].items():
+                fn = getattr(cdll, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[entry] = fn
+        built[name] = (fns, log, lib)
     return built
 
 
-def ptxas_lanes(log: str) -> dict:
-    """`ptxas -v` output -> {instance: {"registers", "spill_stores",
-    "spill_loads"}} for every `poseidon_kernel` instance in it (by its
-    mangled template arguments)."""
+def ptxas_forms(log: str) -> dict:
+    """`ptxas -v` output -> {kernel instance (mangled name from the form's
+    name on): {"registers", "spill_stores", "spill_loads", "stack_frame"}}
+    for every
+    instance of each form in it."""
     out, key = {}, None
     for line in log.splitlines():
         f = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?([^ ']+)", line)
         if f:
-            m = re.match(r"_Z\d+poseidon_kernel(I.*?EE)v", f.group(1))
+            m = re.match(r"_Z\d+(poseidon_\w*?kernel\w*?EE)v", f.group(1))
             key = m.group(1) if m else None
             if key:
                 out.setdefault(key, {})
@@ -166,31 +124,27 @@ def ptxas_lanes(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[key]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[key]["stack_frame"] = int(m.group(1))
     return out
 
 
-def sass_per_state(lib: pathlib.Path, pp, parent: bool) -> dict:
-    """The SASS mix a state of the lanes form's instance for `pp`, each
-    loop by the number of times its body runs in a thread: the new form's
-    staging loop, full rounds and partial rounds; the parent's staging
-    loop, the loop that finds alpha's top bit, its round loop and its three
-    S-box loops (square-and-multiply on alpha's bits below the top one:
-    element 0's every round, elements 1 and 2's in full rounds)."""
+def sass_per_thread(lib: pathlib.Path, pp, kernel: str) -> dict:
+    """The SASS mix a thread of the bls12-381 Fr instance of `kernel`
+    ("poseidon_kernel", one thread a state, or "poseidon_shared_kernel",
+    three), each loop by the number of times its body runs in a thread:
+    the staging loop, the shared form's unit rows (once), the full rounds
+    and the partial rounds."""
     nw = K.words(pp.fs.nl)
     rounds = len(pp.round_constants)
     lo, hi = pp.partial_rounds
-    if parent:
-        name, piece = f"_Z15poseidon_kernelILi{nw}EEv", 1
-        entries = rounds * 3 + 9
-        bits = pp.alpha.bit_length() - 1
-        full = rounds - (hi - lo)
-        # after the staging loop, the one that finds alpha's top bit
-        trips = [bits, rounds, rounds * bits, full * bits, full * bits]
-    else:
-        name = f"_Z15poseidon_kernelILi{nw}ELi{pp.alpha}ELb1E"
-        piece = 4 if nw % 4 == 0 else 2
-        entries = (rounds - (hi - lo)) * 3 + 18 + (hi - lo) * 6
-        trips = [rounds - (hi - lo), hi - lo]
+    name = f"_Z{len(kernel)}{kernel}ILi{nw}ELi{pp.alpha}ELb1E"
+    piece = 4 if nw % 4 == 0 else 2
+    entries = (rounds - (hi - lo)) * 3 + 18 + (hi - lo) * 6
+    trips = [rounds - (hi - lo), hi - lo]
+    if kernel == "poseidon_shared_kernel":
+        trips = [1] + trips
     stage = -(-entries * nw // piece // 128)
     found = [v for k, v in SM.disassemble(str(lib)).items()
              if k.startswith(name)]
@@ -252,27 +206,58 @@ def rand_states(fs, n: int, gen) -> torch.Tensor:
     return x
 
 
-def launcher(fn, pp, table: torch.Tensor, sets: list):
-    """(launch(i) on input set i, the outputs): the lanes form (form 0) of
-    the entry `fn` over whole states, as `poseidon_permute_hopper` calls
-    it."""
+def launcher(fns: dict, pp, table: torch.Tensor, form: str, sets: list):
+    """(launch(i) on input set i, the outputs, the plain outputs of set 0):
+    the form "lanes" or "shared" of the entry over whole states, as
+    `poseidon_permute_hopper` calls it; "tree" on digests (NL, 2S), every
+    level, as `poseidon_tree_hopper` calls it."""
     fs = pp.fs
     nw, fconsts = K.field_consts(fs)
-    sched = HH._schedule(pp, False)
     outs, args = [], []
     for x in sets:
+        if form == "tree":
+            s = x.shape[-1] // 2
+            levels = [torch.empty((fs.nl, s >> lvl), dtype=torch.int32,
+                                  device=x.device)
+                      for lvl in range(s.bit_length())]
+            ptrs, strides = HH.plane_args((x[:, 0::2], x[:, 1::2], None),
+                                          (None, None))
+            lv = (ctypes.c_void_p * len(levels))(*[o.data_ptr()
+                                                   for o in levels])
+            outs.append(levels)
+            args.append((nw, fconsts, ptrs, strides, HH._schedule(pp, True),
+                         table.data_ptr(), lv, s, len(levels)))
+            continue
         ptrs, strides = HH.plane_args((x[:, 0], x[:, 1], x[:, 2]),
                                       (None, None))
         out = torch.empty_like(x)
         outs.append(out)
-        args.append((nw, fconsts, ptrs, strides, sched, table.data_ptr(),
-                     out.data_ptr(), x.shape[-1], 0))
+        args.append((nw, fconsts, ptrs, strides, HH._schedule(pp, False),
+                     table.data_ptr(), out.data_ptr(), x.shape[-1],
+                     0 if form == "lanes" else 1))
+    entry = "zk_poseidon_tree" if form == "tree" else "zk_poseidon_permute"
+    fn = fns[entry]
 
     def launch(i: int) -> None:
-        K.check(fn(*args[i % len(args)], K.stream_ptr()),
-                "zk_poseidon_permute")
+        K.check(fn(*args[i % len(args)], K.stream_ptr()), entry)
 
-    return launch, outs
+    def plain():
+        x = sets[0]
+        if form != "tree":
+            return HH.poseidon_permute_plain(pp, (x[:, 0], x[:, 1], x[:, 2]))
+        levels = []              # one plain permutation a level, any S
+        while x.shape[1] > 1:
+            x = HH.poseidon_permute_plain(pp, (x[:, 0::2], x[:, 1::2], None),
+                                          lane0_only=True)
+            levels.append(x)
+        return levels
+
+    return launch, outs, plain
+
+
+def rand_digests(fs, n: int, gen) -> torch.Tensor:
+    """(NL, n) elements below p."""
+    return rand_states(fs, n, gen)[:, 0].contiguous()
 
 
 def sample_ms(launch, n_sets: int, reps: int) -> float:
@@ -297,6 +282,53 @@ def sample_ms(launch, n_sets: int, reps: int) -> float:
     raise RuntimeError("the stream drained during a timed loop")
 
 
+def cases_for(built: dict, label: str, pp, gen, dense_parent: bool) -> dict:
+    """{(label, form, states, build): (launch, input sets)} for every case
+    of the parameter set, each build's output held against the plain
+    version first at the smallest and the largest size of each form.
+    `dense_parent`: the parent's shared and tree forms read the dense
+    table."""
+    fs = pp.fs
+    if label == "bls12_381_fr":
+        plan = [("lanes", n) for n in SIZES]
+        plan += [("shared", n) for n in SHARED_SIZES]
+        plan += [("tree", s) for s in TREE_STATES]
+    else:
+        plan = NIL_PLAN
+    checked = {}
+    for form, n in plan:
+        if form == "tree":
+            n_sets = 8
+            sets = [rand_digests(fs, 2 * n, gen) for _ in range(n_sets)]
+        else:
+            n_sets = min(64, max(2, -(-FLUSH_BYTES
+                                      // (3 * fs.nl * 4 * n))))
+            sets = [rand_states(fs, n, gen) for _ in range(n_sets)]
+        sizes = [m for f, m in plan if f == form]
+        check = n in (min(sizes), max(sizes))
+        for name in BUILDS:
+            dense = dense_parent and name == "parent" and form != "lanes"
+            table = (HH._const_words if dense else HH._table_words)(pp,
+                                                                   "cuda")
+            launch, outs, plain = launcher(built[name][0], pp, table, form,
+                                           sets)
+            checked[(label, form, n, name)] = (launch, n_sets)
+            if check:
+                launch(0)
+                torch.cuda.synchronize()
+                got, want = outs[0], plain()
+                same = (all(torch.equal(g, w) for g, w in zip(got, want))
+                        and len(got) == len(want)) if form == "tree" \
+                    else torch.equal(got, want)
+                if not same:
+                    raise AssertionError(f"{name} ({form}) differs from the "
+                                         f"plain version ({label}, {n})")
+        print(f"{label} {form} at {n} states: "
+              + ("every build equals the plain version" if check
+                 else "ready"), flush=True)
+    return checked
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True,
@@ -305,8 +337,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None)
     ap.add_argument("--sass-out", default=None,
-                    help="write the SASS of the bls12-381 Fr lanes-form "
-                         "instance here")
+                    help="a directory for the SASS of each build's "
+                         "Poseidon kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("poseidon_times: no CUDA device")
@@ -316,54 +348,43 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     print(f"device: {card}", flush=True)
     built = build(pathlib.Path(args.parent))
-    for name, (_, log, _) in built.items():
-        if name != "rate":
-            print(f"{name}: ptxas -v of the lanes form: {ptxas_lanes(log)}",
-                  flush=True)
+    ptxas = {n: ptxas_forms(b[1]) for n, b in built.items() if n != "rate"}
+    for name, forms in ptxas.items():
+        print(f"{name}: ptxas -v: {forms}", flush=True)
     pp = PO.get_params(P.BLS12_381_FR)
     npp = NPO.get_params(P.PALLAS_FQ)
-    sass = {"new": sass_per_state(built["new"][2], pp, False),
-            "parent": sass_per_state(built["parent"][2], pp, True)}
+    sass = {"new": sass_per_thread(built["new"][2], pp, "poseidon_kernel"),
+            "parent": sass_per_thread(built["parent"][2], pp,
+                                      "poseidon_kernel"),
+            "new_shared_per_thread": sass_per_thread(
+                built["new"][2], pp, "poseidon_shared_kernel")}
     rate = [v for k, v in SM.disassemble(str(built["rate"][2])).items()
             if "imad_loop_kernel" in k]
     # one trip of its loop: 16 `mad.lo.cc` / `madc.hi.cc` pairs
     sass["rate_loop_trip"] = SM.mix(rate[0], 1) if len(rate) == 1 else None
-    print(f"SASS a state, bls12-381 Fr: {json.dumps(sass)}", flush=True)
+    print(f"SASS, bls12-381 Fr: {json.dumps(sass)}", flush=True)
     if args.sass_out:
-        with open(args.sass_out, "w") as f:
-            for k, v in SM.disassemble(str(built["new"][2])).items():
-                if k.startswith("_Z15poseidon_kernelILi8ELi5ELb1E"):
-                    f.write(k + "\n" + "\n".join(
-                        f"{a:#06x} {op} {args}" for a, op, args in v) + "\n")
-    print(f"counts a state: {HH.lanes_counts(pp)}", flush=True)
+        out_dir = pathlib.Path(args.sass_out)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for name, (_, _, lib) in built.items():
+            if name == "rate":
+                continue
+            with open(out_dir / f"{name}.sass", "w") as f:
+                for k, v in SM.disassemble(str(lib)).items():
+                    if "poseidon" in k:
+                        f.write(k + "\n" + "\n".join(
+                            f"{a:#06x} {op} {o}" for a, op, o in v) + "\n")
+    counts = {"lanes": HH.lanes_counts(pp), "shared": HH.shared_counts(pp)}
+    print(f"counts a state: {counts}", flush=True)
 
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(14)
-    cases = {}
-    for label, params, names in (("bls12_381_fr", pp, list(BUILDS)),
-                                 ("nil_pallas_fq", npp, ["parent", "new"])):
-        fs = params.fs
-        sizes = SIZES if label == "bls12_381_fr" else (1 << 17,)
-        for n in sizes:
-            n_sets = min(64, max(2, -(-FLUSH_BYTES
-                                      // (3 * fs.nl * 4 * n))))
-            sets = [rand_states(fs, n, gen) for _ in range(n_sets)]
-            for name in names:
-                table = (HH._const_words if name == "parent"
-                         else HH._lanes_words)(params, "cuda")
-                launch, outs = launcher(built[name][0], params, table, sets)
-                cases[(label, n, name)] = (launch, n_sets)
-                if n in (64, 1 << 17):
-                    launch(0)
-                    torch.cuda.synchronize()
-                    want = HH.poseidon_permute_plain(
-                        params, (sets[0][:, 0], sets[0][:, 1], sets[0][:, 2]))
-                    if not torch.equal(outs[0], want):
-                        raise AssertionError(f"{name} differs from the plain "
-                                             f"version ({label}, n = {n})")
-            print(f"{label} at {n} states: every build equals the plain "
-                  f"version" if n in (64, 1 << 17) else
-                  f"{label} at {n} states: ready", flush=True)
+    gen.manual_seed(15)
+    # a parent from before the shared forms' sparse rounds runs them on the
+    # dense table, the textbook schedule
+    dense = "partial_round_shared" not in (pathlib.Path(args.parent)
+                                           / SOURCE).read_text()
+    cases = cases_for(built, "bls12_381_fr", pp, gen, dense)
+    cases.update(cases_for(built, "nil_pallas_fq", npp, gen, dense))
     keys = list(cases)
     times = {k: [] for k in keys}
     for r in range(args.rounds):
@@ -372,13 +393,11 @@ def main(argv=None) -> int:
             times[k].append(sample_ms(launch, n_sets, args.reps))
     median = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     for k in keys:
-        print(f"{k[0]} {k[1]} states {k[2]}: median {median[k]:.4f} ms, "
-              "samples " + ", ".join(f"{t:.4f}" for t in times[k]),
+        print(f"{k[0]} {k[1]} {k[2]} states {k[3]}: median {median[k]:.4f} "
+              "ms, samples " + ", ".join(f"{t:.4f}" for t in times[k]),
               flush=True)
     result = {"card": card, "rounds": args.rounds, "reps": args.reps,
-              "ptxas": {n: ptxas_lanes(b[1]) for n, b in built.items()
-                        if n != "rate"},
-              "sass_per_state": sass, "counts": HH.lanes_counts(pp),
+              "ptxas": ptxas, "sass": sass, "counts": counts,
               "ms": {"/".join(map(str, k)): v for k, v in times.items()},
               "median_ms": {"/".join(map(str, k)): v
                             for k, v in median.items()}}

@@ -234,12 +234,12 @@ def _poseidon(entry, pp, ins, adds=(None, None), lane0_only=False, form=0):
     nw, consts = K.field_consts(fs)
     ptrs, strides = HH.plane_args(ins, adds)
     out = _filled((fs.nl, n) if lane0_only else (fs.nl, 3, n))
-    # the form's table, as the wrapper picks it: the lanes form's own
-    # (sparse partial rounds in the original flavour), else the dense one
-    table = HH._lanes_words if form == 0 else HH._const_words
+    # the table every form reads, as the wrapper passes it (sparse partial
+    # rounds in the original flavour, the dense one in the nil flavour)
     assert entry("zk_poseidon_permute")(
         nw, consts, ptrs, strides, HH._schedule(pp, lane0_only),
-        table(pp, "cpu").data_ptr(), out.data_ptr(), n, form, None) == 0
+        HH._table_words(pp, "cpu").data_ptr(), out.data_ptr(), n, form,
+        None) == 0
     return out
 
 
@@ -342,7 +342,7 @@ def test_poseidon_lanes_form_edge_states(entry, flavour):
     nw, consts = K.field_consts(fs)
     ptrs, strides = HH.plane_args((state[:, 0], state[:, 1], state[:, 2]),
                                   (None, None))
-    table = HH._lanes_words(pp, "cpu").data_ptr()
+    table = HH._table_words(pp, "cpu").data_ptr()
     rounds = len(pp.round_constants)
     # sched[1], [2], [3] = p_begin, p_end, alpha. Original flavour: no full
     # round before the partial ones, none after them, an alpha without an
@@ -395,7 +395,7 @@ def _poseidon_tree(entry, pp, digests):
     outs = (ctypes.c_void_p * len(levels))(*[t.data_ptr() for t in levels])
     assert entry("zk_poseidon_tree")(
         nw, consts, ptrs, strides, HH._schedule(pp, True),
-        HH._const_words(pp, "cpu").data_ptr(), outs, s, len(levels),
+        HH._table_words(pp, "cpu").data_ptr(), outs, s, len(levels),
         None) == 0
     return levels
 

@@ -160,7 +160,7 @@ def _permute_by_lanes_table(pp, state):
     kernel lays it out: the full rounds' rc vectors, M, the pre-sparse
     matrix, then (k, m00, w1, w2, v1, v2) for each partial round."""
     fs, p = pp.fs, pp.fs.p
-    t = _table_ints(fs, HH._lanes_words(pp, "cpu"))
+    t = _table_ints(fs, HH._table_words(pp, "cpu"))
     lo, hi = pp.partial_rounds
     full = len(pp.round_constants) - (hi - lo)
     assert len(t) == 3 * full + 18 + 6 * (hi - lo)
@@ -203,10 +203,10 @@ def test_lanes_tables_and_counts():
     """The nil flavour's lanes table is the dense one; the original one is
     384 entries; the counts the lanes form's bound is reckoned from."""
     npp = TNPO.get_params(TP.PALLAS_FQ)
-    assert torch.equal(HH._lanes_words(npp, "cpu"),
+    assert torch.equal(HH._table_words(npp, "cpu"),
                        HH._const_words(npp, "cpu"))
     pp = TPO.get_params(TP.BLS12_381_FR)
-    assert HH._lanes_words(pp, "cpu").shape == (384, 8)
+    assert HH._table_words(pp, "cpu").shape == (384, 8)
     assert HH.lanes_counts(pp) == {
         "products": 600, "squarings": 162, "reductions": 438,
         "instructions": 139_872, "floor_instructions": 130_800,
