@@ -4,17 +4,20 @@
     python3 chip_smoke.py
 
 It builds the CUDA kernels from `crypto3_zk_tpu_torch/csrc/`, measures the
-card's 32-bit multiply-add rate (`csrc/rate.cu`), holds each kernel, and
+card's 32-bit multiply-add rate and its funnel-shift, `IMAD.HI` and mixed
+streams (`csrc/rate.cu`), holds each kernel, and
 each form of kernel 5, against its plain PyTorch version on the card (exact
 equality: every value is an integer) for the 8- and 12-word fields and for
 the Goldilocks (2 words, p fills its top word) and MNT4 Fr (19 digits,
 R = 2^304) instances, kernel 6 (batched scalar multiplication) on G1
 and G2 of alt_bn128 and bls12-381 at 2^16 points, kernel 7 (SHA-256)
-in its node and block forms at 2^18 messages (and a sample against
-`hashlib`), and kernel 8 (a pass of `ntt_mxu`: 8-bit digit products on
-`wgmma`) in every form (the block form at sides 2 to 64 and ragged column
-counts; the first, a middle and the last pass of 2^20 chains of sides 16,
-32 and 64, with the twiddle, packed digits in and out), the middle passes
+in its node, block and leaf forms at 2^18 messages, the leaf form at
+every instance and the block form at lengths with and without a block of
+pure padding (and samples against `hashlib`), and kernel 8 (a pass of
+`ntt_mxu`: 8-bit digit products on `wgmma`) in every form (the block form
+at sides 2 to 64 and ragged column counts; the first, a middle and the
+last pass of 2^20 chains of sides 16, 32 and 64, with the twiddle, packed
+digits in and out), the middle passes
 timed over 2^20 elements beside their floors and one `torch._int_mm` of
 the same digit products, then drives the port's main paths through the
 entry points a user calls:
@@ -84,7 +87,8 @@ entry points a user calls:
   `synthetic_prove`s, `verify` of each, `batch_verify` of both and a
   mutated proof rejected;
 - the LPC path's settings with sha2_256 Merkle trees (every level by
-  kernel 7): a small proof equal card against CPU, then commit,
+  kernel 7: leaves by its leaf form from the rows' digit planes, nodes by
+  its node form): a small proof equal card against CPU, then commit,
   `proof_eval` twice, `verify_eval`, a changed value rejected;
 - the mesh layer (`parallel/`) on a world of one rank a card (NCCL,
   spawned by `launch.py`, one rank on a one-card machine): the distributed
@@ -112,11 +116,14 @@ own, a JSON object {"kernels": [...]} with every kernel's numbers
 the Placeholder path over LPC, the Placeholder-over-KZG path, the classic
 path, the ceremony path, the Pasta path, the sha2 LPC path, the mesh
 path, whose launches are summed over its ranks, and the `ntt_mxu` path;
+kernel 7's block form runs on none of them: its rows hold 0;
 `launches_<path>` its parts; a row named
 `kernel[field]` is another field's instance, its launches those of that
 field's run; `int_bound_ms` is the bound with the measured integer rate;
-kernel 7's rows add `issue_bound_ms`, the floor its own SASS instructions
-set at the card's issue rates, `tools/sass_mix.py`);
+kernel 7's `bound_ms` is its shortest schedule's instructions at the issue
+rate (`ops/sha256.py::sha256_counts`), and its rows add `issue_bound_ms`,
+the floor its own SASS instructions set at the card's per-pipe rates,
+`tools/sass_mix.py`, and `ptxas -v`'s registers);
 then the card's name and power limit; then the result line.
 
 `--kernels-only` stops after the kernel checks, for a quick look at a kernel
@@ -260,11 +267,44 @@ def imad_rate(torch) -> float:
     return per_s
 
 
+# `csrc/rate.cu`'s streams that kernel 7's design rests on: funnel shifts,
+# `IMAD` and `IMAD.HI` alone, and funnel shifts interleaved with each
+# (`tools/sha256_times.py` times all eleven)
+INT_STREAMS = ("shf", "imad_lo", "imad_hi", "shf_imad_hi", "shf_imad_lo")
+
+
+def int_streams(torch) -> dict:
+    """The rates of `INT_STREAMS` in lane-instructions a second, beside the
+    issue rate, and each loop's SASS (one trip): which instructions issue
+    side by side, which kernel 7's split between the ALU and FMA pipes
+    rests on (`tools/timing.py::int_rates`)."""
+    from crypto3_zk_tpu_torch.tools import timing as T
+    out = T.int_rates(INT_STREAMS)
+    out["issue_per_s"] = issue_per_s()
+    log(f"integer streams, T lane-instructions/s (steps; SASS): "
+        + ", ".join(f"{k} {v / 1e12:.3f}; {out['sass_per_s'][k] / 1e12:.3f}"
+                    for k, v in out["per_s"].items())
+        + f" (issue rate {out['issue_per_s'] / 1e12:.3f}); a loop trip's "
+        f"SASS: " + json.dumps({k: (v["alu"], v["fma"], v["top_opcodes"])
+                                for k, v in out["loop_trip_sass"].items()}))
+    return out
+
+
 def int_bound_ms(bytes_moved: int, ops: int) -> float:
     """The bound with the measured integer rate in place of the float32
     one: the larger of the bytes' time and the multiply-add instructions'
     (`ops` counts two a word product, the instructions it issues)."""
     return max(bytes_moved / HBM_BYTES_PER_S, ops / IMAD["per_s"]) * 1e3
+
+
+def issue_per_s() -> float:
+    """Lane-instructions a second the card's schedulers issue: 4 warps (128
+    lanes) a clock an SM, at its SM count and highest SM clock."""
+    import torch
+
+    from crypto3_zk_tpu_torch.tools import sass_mix as SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SM.LANES_ISSUE * sms * SM.max_sm_clock_hz()
 
 
 # ---------------------------------------------------------------------------
@@ -296,7 +336,7 @@ def check_kernels(torch):
 
     def measure(name, source, replaces, fs, kernel, plain, make, bytes_moved,
                 ops, per_set_bytes, extra_err=0, latency_bound_ms=None,
-                plain_reps=2):
+                plain_reps=2, issue_instructions=None):
         n_sets = max(1, -(-FLUSH_BYTES // per_set_bytes))
         sets = [make() for _ in range(n_sets)]
         err = max(extra_err, compare(name, fs, kernel, plain, sets[0]))
@@ -322,9 +362,19 @@ def check_kernels(torch):
             rows[-1]["bound_note"] = ("latency: dependent products in "
                                       "sequence x the time of one")
             rows[-1]["int_bound_ms"] = latency_bound_ms
+        if issue_instructions is not None:
+            # integer ALU work that no float32 rate describes: the
+            # instructions at the schedulers' issue rate
+            by_issue = issue_instructions / issue_per_s() * 1e3
+            by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+            rows[-1].update(
+                bound_ms=max(by_issue, by_bytes), int_bound_ms=by_issue,
+                bound_by="operations" if by_issue >= by_bytes else "bytes",
+                bound_note="instructions of the shortest schedule at the "
+                           "issue rate, 128 lanes a clock an SM")
         log(f"  {name}: {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-            f"{bound_ms:.4f} ms by {bound_by}, integer-rate bound "
-            f"{rows[-1]['int_bound_ms']:.4f} ms")
+            f"{rows[-1]['bound_ms']:.4f} ms by {rows[-1]['bound_by']}, "
+            f"integer-rate bound {rows[-1]['int_bound_ms']:.4f} ms")
         return rows[-1]
 
     # kernel 1: Montgomery multiply (and the add / subtract entries)
@@ -1117,21 +1167,39 @@ def check_field(torch, fs, gen, compare, measure):
 
 SHA256_MESSAGES = 1 << 18        # kernel 7: a level of 2^18 node messages
 SHA256_LEAF_BYTES = 256          # and 2^18 leaves of 8 bls12-381 Fr values
+# the leaf form's small cases (field, elements a leaf): every instance at 1,
+# 2 and 8 elements, and the two leaves whose bit length takes a block of
+# its own (7 x 8 and 5 x 38 bytes leave 56 and 62 in their last block)
+SHA256_LEAF_CASES = tuple(
+    (f, kk) for f in ("GOLDILOCKS", "BLS12_381_FR", "MNT4_FR", "BLS12_381_FQ")
+    for kk in (1, 2, 8)) + (("GOLDILOCKS", 7), ("MNT4_FR", 5))
 
 
 def check_sha256(torch, compare, measure):
     """Kernel 7 against its plain version (the same compression in int64
-    tensor ops), exact, in both forms at the sha2 LPC path's widths: the
-    node form on 2^18 messages (a level of 2^19 random digests read in
-    place) and the block form on 2^18 padded leaves of 256 bytes (5
-    blocks); a sample of 64 messages of each against `hashlib`. Bound by
-    the operations (`ops/sha256.py::OPS_PER_COMPRESSION` a compression)."""
+    tensor ops), exact, in its three forms at the sha2 LPC path's widths:
+    the node form on 2^18 messages (a level of 2^19 random digests read in
+    place), the block form on 2^18 padded messages of 256 bytes (4 blocks
+    read, the fifth, pure padding, from `padding_schedule(256)`; and all 5
+    read, as for a length not given) and the leaf form on 2^18 leaves of 8
+    bls12-381 Fr values (Montgomery rows; the kernel reads the digit planes
+    `from_mont` makes); at small ragged sizes for every leaf instance (8,
+    32, 38 and 48 bytes an element, 1, 2 and 8 elements a leaf, and 7
+    Goldilocks and 5 MNT4 Fr values, 56 and 190 bytes, whose bit length
+    takes a block of its own); samples of 64 messages of each form against
+    `hashlib`. Bound: the instructions of the shortest schedule
+    (`ops/sha256.py::sha256_counts`) at the issue rate, beside the per-pipe
+    floor of the kernels' own SASS. Kernel 7's block form runs on no path
+    (the leaf form took its place): it is held and timed here only."""
     import hashlib
 
     from crypto3_zk_tpu_torch.fields import params as P
+    from crypto3_zk_tpu_torch.ops import limbs as L
     from crypto3_zk_tpu_torch.ops import sha256 as SH
+    from crypto3_zk_tpu_torch.transcript.fiat_shamir import field_to_bytes
 
     n = SHA256_MESSAGES
+    k = SHA256_LEAF_BYTES // 32
     label = P.BLS12_381_FR          # the field of the sha2 path's leaves
     gen = torch.Generator(device="cuda")
     gen.manual_seed(256)
@@ -1145,11 +1213,46 @@ def check_sha256(torch, compare, measure):
                              device="cuda", dtype=torch.int64)
         return (msgs, SH.pad_messages(msgs))
 
+    def rows_of(fs, kk, m):
+        """(kk, NL, m) Montgomery rows of elements below p."""
+        return rand_field(torch, fs, (kk, m), gen).permute(1, 0, 2) \
+            .contiguous()
+
+    def digits_of(fs, rows):
+        return L.from_mont(fs, rows.permute(1, 0, 2))
+
+    def leaf_kernel(fs, rows, digits):
+        return SH.sha256_field_digits_hopper(digits, rows.shape[0],
+                                             SH.leaf_half(fs))
+
+    def leaf_plain(fs, rows, digits):
+        return SH.sha256_field_rows_plain(fs, rows)
+
+    t0 = time.perf_counter()
     for m in (1, 127, 129):          # ragged blocks of threads
         compare("sha256_nodes", label, lambda fs, x: SH.sha256_nodes_hopper(x),
                 lambda fs, x: SH.sha256_nodes_plain(x), (words((8, 2 * m)),))
         compare("sha256", label, lambda fs, x: SH.sha256_blocks_hopper(x),
                 lambda fs, x: SH.sha256_blocks_plain(x), (words((32, m)),))
+        compare("sha256_field_rows", label,
+                lambda fs_, r: SH.sha256_field_rows_hopper(fs_, r),
+                lambda fs_, r: SH.sha256_field_rows_plain(fs_, r),
+                (rows_of(label, k, m),))
+    # every length kind and every leaf instance, on two blocks of threads,
+    # the second ragged
+    for length in (55, 56, 64, 119, 120, 256):
+        msgs = torch.randint(0, 256, (129, length), generator=gen,
+                             device="cuda", dtype=torch.int64)
+        compare(f"sha256(length {length})", label,
+                lambda fs, x: SH.sha256_blocks_hopper(x, length),
+                lambda fs, x: SH.sha256_blocks_plain(x),
+                (SH.pad_messages(msgs),))
+    for name, kk in SHA256_LEAF_CASES:
+        fs = getattr(P, name)
+        compare("sha256_field_rows", fs,
+                lambda fs_, r: SH.sha256_field_rows_hopper(fs_, r),
+                lambda fs_, r: SH.sha256_field_rows_plain(fs_, r),
+                (rows_of(fs, kk, 129),))
 
     def sample(digests, messages) -> None:
         got = SH.digests_to_bytes(digests[:, :64])
@@ -1163,50 +1266,99 @@ def check_sha256(torch, compare, measure):
     msgs, padded = leaves()
     raw = msgs[:64].cpu().numpy().astype("uint8")
     sample(SH.sha256_blocks_hopper(padded), [bytes(r) for r in raw])
-    log("  sha256: 64 node and 64 leaf messages equal to hashlib")
+    sample(SH.sha256_blocks_hopper(padded, SHA256_LEAF_BYTES),
+           [bytes(r) for r in raw])
+    leaf_samples = [(name, k) for name in ("GOLDILOCKS", "BLS12_381_FR",
+                                           "MNT4_FR", "BLS12_381_FQ")]
+    leaf_samples += [c for c in SHA256_LEAF_CASES if c[1] not in (1, 2, 8)]
+    for name, kk in leaf_samples:
+        fs = getattr(P, name)
+        rows = rows_of(fs, kk, 64)
+        vals = [L.decode(fs, rows[e]) for e in range(kk)]
+        sample(SH.sha256_field_rows_hopper(fs, rows),
+               [b"".join(field_to_bytes(fs, vals[e][i]) for e in range(kk))
+                for i in range(64)])
+    log(f"  sha256: 64 node, 2 x 64 block and {len(leaf_samples)} x 64 leaf "
+        f"messages equal to hashlib")
     del level, msgs, padded
 
-    ops = SH.OPS_PER_COMPRESSION
+    nb = SH.padded_blocks(SHA256_LEAF_BYTES)
     nodes = measure("sha256_nodes", "crypto3_zk_tpu_torch/csrc/sha256.cu",
             "crypto3_zk_tpu/ops/sha256.py:39", label,
             lambda fs, x: SH.sha256_nodes_hopper(x),
             lambda fs, x: SH.sha256_nodes_plain(x),
             lambda: (words((8, 2 * n)),),
-            bytes_moved=3 * 8 * 4 * n, ops=2 * ops * n,
-            per_set_bytes=2 * 8 * 4 * n)
-    nb = SH.padded_blocks(SHA256_LEAF_BYTES)
+            bytes_moved=3 * 8 * 4 * n, ops=0,
+            per_set_bytes=2 * 8 * 4 * n,
+            issue_instructions=SH.sha256_counts(1, 1)["instructions"] * n)
     blocks = measure("sha256", "crypto3_zk_tpu_torch/csrc/sha256.cu",
                      "crypto3_zk_tpu/ops/sha256.py:39", label,
-                     lambda fs, x: SH.sha256_blocks_hopper(x),
+                     lambda fs, x: SH.sha256_blocks_hopper(
+                         x, SHA256_LEAF_BYTES),
                      lambda fs, x: SH.sha256_blocks_plain(x),
                      lambda: (leaves()[1],),
-                     bytes_moved=(16 * nb + 8) * 4 * n, ops=nb * ops * n,
-                     per_set_bytes=16 * nb * 4 * n)
-    sha256_issue_bounds(torch, nodes, blocks, nb, n)
+                     bytes_moved=(16 * (nb - 1) + 8) * 4 * n, ops=0,
+                     per_set_bytes=16 * nb * 4 * n,
+                     issue_instructions=SH.sha256_counts(nb - 1, 1)[
+                         "instructions"] * n)
+    # the same messages with every block read and scheduled (the contract's
+    # path for a length not given)
+    all_sets = [leaves()[1] for _ in range(2)]
+    blocks["all_blocks_read_ms"] = time_ms(
+        torch, lambda i: SH.sha256_blocks_hopper(all_sets[i]), 2, 20,
+        queued=True)
+    del all_sets
+
+    def leaf_set():
+        rows = rows_of(label, k, n)
+        return (rows, digits_of(label, rows))
+
+    leaf = measure("sha256_field_rows",
+                   "crypto3_zk_tpu_torch/csrc/sha256_leaf.cu",
+                   "crypto3_zk_tpu/ops/sha256.py:39", label, leaf_kernel,
+                   leaf_plain, leaf_set,
+                   bytes_moved=(k * 16 + 8) * 4 * n, ops=0,
+                   per_set_bytes=2 * k * 16 * 4 * n,
+                   issue_instructions=SH.sha256_counts(nb - 1, 1)[
+                       "instructions"] * n)
+    sha256_issue_bounds(torch, nodes, blocks, leaf, nb, n)
+    log(f"  kernel 7's checks: {time.perf_counter() - t0:.2f} s")
 
 
-def sha256_issue_bounds(torch, nodes: dict, blocks: dict, nb: int,
-                        n: int) -> None:
+def sha256_issue_bounds(torch, nodes: dict, blocks: dict, leaf: dict,
+                        nb: int, n: int) -> None:
     """Kernel 7's floor from its own instructions: `cuobjdump -sass` of the
-    built library, counted by pipe a message (the block form's loop run
-    once a block, `tools/sass_mix.py`), at the card's SM count and highest
-    SM clock. Adds `sass_per_message`, `issue_bound_ms` and
-    `issue_bound_by` to the two rows; `bound_ms` stays the 67 T/s one."""
+    built library, counted by pipe a message (each loop by its trips:
+    the block form's nb - 1 blocks read, the leaf form's nb - 1 full
+    blocks and no tail block; the padding block once, `tools/sass_mix.py`),
+    at the card's SM count and highest SM clock; and `ptxas -v`'s registers
+    and spills. Adds `sass_per_message`, `issue_bound_ms`, `issue_bound_by`
+    and `ptxas` to the three rows."""
+    from crypto3_zk_tpu_torch import kernels as K
     from crypto3_zk_tpu_torch.tools import sass_mix as SM
+    from crypto3_zk_tpu_torch.tools import timing as T
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = SM.max_sm_clock_hz()
-    for row, kernel, trips in ((nodes, "sha256_nodes_kernel", 1),
-                               (blocks, "sha256_blocks_kernel", nb)):
-        per = SM.kernel_mix("sha256.cu", kernel, trips)
+    ptxas = {}
+    for source in ("sha256.cu", "sha256_leaf.cu"):
+        ptxas.update(T.ptxas_table(K.build_log(source),
+                                   lambda f: f if "sha256" in f else None))
+    for row, source, kernel, trips in (
+            (nodes, "sha256.cu", "sha256_nodes_kernel", 1),
+            (blocks, "sha256.cu", "sha256_blocks_kernel", nb - 1),
+            (leaf, "sha256_leaf.cu", "sha256_field_rows_kernelILi16E",
+             [nb - 1, 0])):
+        per = SM.kernel_mix(source, kernel, trips)
         ms, by = SM.floor_ms(per, n, sms, clock)
         row.update(sass_per_message=per, issue_bound_ms=ms,
-                   issue_bound_by=by, sm_clock_mhz=clock / 1e6)
+                   issue_bound_by=by, sm_clock_mhz=clock / 1e6,
+                   ptxas={k: v for k, v in ptxas.items() if kernel in k})
         log(f"  {row['name']}: {per['total']} instructions a message "
             f"(alu {per['alu']}, fma {per['fma']}, mem {per['mem']}, "
             f"uniform {per['uniform']}, control {per['control']}; "
             f"{per['top_opcodes']}), issue-rate floor {ms:.4f} ms by {by} "
             f"at {sms} SMs x {clock / 1e6:.0f} MHz: {row['ms']:.4f} ms is "
-            f"{100 * ms / row['ms']:.0f} % of it")
+            f"{100 * ms / row['ms']:.0f} % of it; ptxas {row['ptxas']}")
 
 
 def launch_counts() -> dict:
@@ -2207,7 +2359,7 @@ def ceremony_path(torch) -> tuple[dict, dict]:
 
 PASTA_LOG2 = 16                  # Mina's step circuits: an SRS and domain
 PASTA_KERNELS = ("mont_mul", "inv_scans", "mul3", "inv_tail", "scalar_mul")
-LPC_SHA2_KERNELS = GROTH16_KERNELS + ("sha256", "sha256_nodes")
+LPC_SHA2_KERNELS = GROTH16_KERNELS + ("sha256_field_rows", "sha256_nodes")
 PASTA_CROSSOVER_SIZES = (16, 32, 64, 128)
 
 
@@ -3037,13 +3189,14 @@ def main(argv=None) -> int:
     rate = imad_rate(torch)
     log(f"32-bit multiply-adds with carry: {rate / 1e12:.3f} T/s measured "
         f"(the float32 rate the bounds use: {OPS_PER_S / 1e12:.0f} T/s)")
+    streams = int_streams(torch)
 
     t0 = time.perf_counter()
     rows, transforms = check_kernels(torch)
     log(f"kernels: {time.perf_counter() - t0:.2f} s, launches so far "
         f"{launch_counts()}")
 
-    extra = {"imad_per_s": rate}
+    extra = {"imad_per_s": rate, "int_streams": streams}
     if not args.kernels_only:
         t0 = time.perf_counter()
         extra["ntt_big"] = check_big_transforms(torch)

@@ -145,9 +145,9 @@ class ByteHasher:
 
     def leaf_hash_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """rows: (k, NL, n) Montgomery leaf rows -> (8, n) digest words of
-        each leaf's k canonical big-endian elements, on rows' device."""
-        return SH.sha256_blocks_hopper(SH.pad_messages(
-            SH.field_rows_to_bytes(self.fs, rows)))
+        each leaf's k canonical big-endian elements, on rows' device (kernel
+        7's leaf form, reading the rows' canonical digits)."""
+        return SH.sha256_field_rows_hopper(self.fs, rows)
 
     def node_level(self, cur: torch.Tensor) -> torch.Tensor:
         """The level above (8, 2m) digest words: (8, m)."""

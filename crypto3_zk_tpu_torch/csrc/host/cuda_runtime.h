@@ -59,6 +59,10 @@ inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned s) {
   s &= 31u;
   return s ? (lo >> s) | (hi << (32u - s)) : lo;
 }
+// the high 32 bits of the 64-bit product
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 using std::max;
 using std::min;
 

@@ -1,140 +1,35 @@
-// Kernel 7: SHA-256 compression of a batch of equal-length messages, one
-// thread a message, in two forms.
-//
-// It replaces `crypto3_zk_tpu/ops/sha256.py:39 sha256_batch_blocks`, which
-// has no Pallas kernel: the JAX package runs the 64 rounds as a `lax.scan`
-// of uint32 lane math and leaves the fusion to XLA. Its users are the sha2
-// Merkle trees of `commitments/merkle.py`: a leaf is the big-endian bytes of
-// a row of field elements, a node the 64 bytes of its two children.
-//
-// Layout: word planes, word index first and messages innermost, as the
-// port keeps limb planes, so that neighbouring threads read neighbouring
-// words:
-// - block form, `zk_sha256_blocks`: the padded messages as (nb * 16, n)
-//   big-endian words, word j of block b of message i at (b*16 + j)*n + i;
-// - node form, `zk_sha256_nodes`: a tree level's (8, 2m) digest words read
-//   in place, message i being digests 2i and 2i + 1 (word j of digest d at
-//   j*2m + d); the fixed second block of a 64-byte message (0x80, zeros,
-//   the bit length 512) is built in registers and never read;
-// - the digests come out as (8, n) words, word j of message i at j*n + i.
-//
-// Inside a thread: the eight state words and the rolling 16-word schedule
-// window stay in registers (the rounds are unrolled, so every window index
-// is a constant), the round constants K are in `__constant__` memory (all
-// threads of a warp read the same one, a broadcast), and the rotations are
-// `__funnelshift_r` of a word with itself.
-//
-// What bounds it: a compression reads 64 bytes and does about 2,170 32-bit
-// operations (64 rounds of about 24, 48 schedule steps of about 13, and the
-// final 8 additions), so the integer pipes, not the memory, bound a batch
-// by two orders of magnitude. Nothing is shared between threads, so the
-// design is just enough threads to keep the pipes full: 128 a block,
-// (n + 127) / 128 blocks.
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-__constant__ uint32_t ZK_SHA256_K[64] = {
-    0x428a2f98u, 0x71374491u, 0xb5c0fbcfu, 0xe9b5dba5u, 0x3956c25bu,
-    0x59f111f1u, 0x923f82a4u, 0xab1c5ed5u, 0xd807aa98u, 0x12835b01u,
-    0x243185beu, 0x550c7dc3u, 0x72be5d74u, 0x80deb1feu, 0x9bdc06a7u,
-    0xc19bf174u, 0xe49b69c1u, 0xefbe4786u, 0x0fc19dc6u, 0x240ca1ccu,
-    0x2de92c6fu, 0x4a7484aau, 0x5cb0a9dcu, 0x76f988dau, 0x983e5152u,
-    0xa831c66du, 0xb00327c8u, 0xbf597fc7u, 0xc6e00bf3u, 0xd5a79147u,
-    0x06ca6351u, 0x14292967u, 0x27b70a85u, 0x2e1b2138u, 0x4d2c6dfcu,
-    0x53380d13u, 0x650a7354u, 0x766a0abbu, 0x81c2c92eu, 0x92722c85u,
-    0xa2bfe8a1u, 0xa81a664bu, 0xc24b8b70u, 0xc76c51a3u, 0xd192e819u,
-    0xd6990624u, 0xf40e3585u, 0x106aa070u, 0x19a4c116u, 0x1e376c08u,
-    0x2748774cu, 0x34b0bcb5u, 0x391c0cb3u, 0x4ed8aa4au, 0x5b9cca4fu,
-    0x682e6ff3u, 0x748f82eeu, 0x78a5636fu, 0x84c87814u, 0x8cc70208u,
-    0x90befffau, 0xa4506cebu, 0xbef9a3f7u, 0xc67178f2u};
-
-#define ZK_SHA256_THREADS 128
-
-__device__ __forceinline__ uint32_t zk_rotr(uint32_t x, unsigned n) {
-  return __funnelshift_r(x, x, n);
-}
-
-__device__ __forceinline__ void zk_sha256_init(uint32_t st[8]) {
-  st[0] = 0x6a09e667u;
-  st[1] = 0xbb67ae85u;
-  st[2] = 0x3c6ef372u;
-  st[3] = 0xa54ff53au;
-  st[4] = 0x510e527fu;
-  st[5] = 0x9b05688cu;
-  st[6] = 0x1f83d9abu;
-  st[7] = 0x5be0cd19u;
-}
-
-// One compression of the 16 words `w` into the state; `w` is the schedule
-// window and is overwritten.
-__device__ __forceinline__ void zk_sha256_compress(uint32_t st[8],
-                                                   uint32_t w[16]) {
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll
-  for (int r = 0; r < 64; ++r) {
-    uint32_t wr;
-    if (r < 16) {
-      wr = w[r];
-    } else {
-      // w[r & 15] holds W[r-16]; W[r-15], W[r-7], W[r-2] sit at +1, +9, +14
-      const uint32_t w15 = w[(r + 1) & 15], w2 = w[(r + 14) & 15];
-      const uint32_t s0 = zk_rotr(w15, 7) ^ zk_rotr(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = zk_rotr(w2, 17) ^ zk_rotr(w2, 19) ^ (w2 >> 10);
-      wr = w[r & 15] + s0 + w[(r + 9) & 15] + s1;
-      w[r & 15] = wr;
-    }
-    const uint32_t S1 = zk_rotr(e, 6) ^ zk_rotr(e, 11) ^ zk_rotr(e, 25);
-    const uint32_t ch = (e & f) ^ (~e & g);
-    const uint32_t t1 = h + S1 + ch + ZK_SHA256_K[r] + wr;
-    const uint32_t S0 = zk_rotr(a, 2) ^ zk_rotr(a, 13) ^ zk_rotr(a, 22);
-    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    h = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + S0 + maj;
-  }
-  st[0] += a;
-  st[1] += b;
-  st[2] += c;
-  st[3] += d;
-  st[4] += e;
-  st[5] += f;
-  st[6] += g;
-  st[7] += h;
-}
-
-__device__ __forceinline__ void zk_sha256_store(const uint32_t st[8],
-                                                uint32_t* out, long long n,
-                                                long long i) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) out[j * n + i] = st[j];
-}
+// Kernel 7, block and node forms (the design: sha256.cuh).
+#include "sha256.cuh"
 
 __global__ void __launch_bounds__(ZK_SHA256_THREADS)
     sha256_blocks_kernel(const uint32_t* __restrict__ words, long long n,
-                         int nblocks, uint32_t* __restrict__ out) {
+                         int nblocks, int padded, const ZkSha256Pad pad,
+                         uint32_t* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  uint32_t st[8], w[16];
+  uint32_t st[8], w[16], next[16];
   zk_sha256_init(st);
-  for (int b = 0; b < nblocks; ++b) {
+  auto load = [&](int b, uint32_t (&dst)[16]) {
     const uint32_t* blk = words + (long long)b * 16 * n + i;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) w[j] = blk[j * n];
-    zk_sha256_compress(st, w);
+    for (int j = 0; j < 16; ++j) dst[j] = blk[j * n];
+  };
+  // the next block's words load while the current one is compressed
+  if (nblocks > 0) load(0, next);
+#pragma unroll 1
+  for (int b = 0; b < nblocks; ++b) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) w[j] = next[j];
+    if (b + 1 < nblocks) load(b + 1, next);
+    zk_sha256_compress<true>(st, w);
   }
+  if (padded) zk_sha256_compress_pad<true>(st, pad);
   zk_sha256_store(st, out, n, i);
 }
 
 __global__ void __launch_bounds__(ZK_SHA256_THREADS)
     sha256_nodes_kernel(const uint32_t* __restrict__ level, long long m,
-                        uint32_t* __restrict__ out) {
+                        const ZkSha256Pad pad, uint32_t* __restrict__ out) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   const long long n_in = 2 * m;
@@ -145,38 +40,34 @@ __global__ void __launch_bounds__(ZK_SHA256_THREADS)
     w[j] = level[j * n_in + 2 * i];
     w[8 + j] = level[j * n_in + 2 * i + 1];
   }
-  zk_sha256_compress(st, w);
-  // the padding block of a 64-byte message
-  w[0] = 0x80000000u;
-#pragma unroll
-  for (int j = 1; j < 15; ++j) w[j] = 0u;
-  w[15] = 512u;
-  zk_sha256_compress(st, w);
+  zk_sha256_compress<false>(st, w);
+  zk_sha256_compress_pad<false>(st, pad);
   zk_sha256_store(st, out, m, i);
 }
 
-static unsigned zk_sha256_grid(long long n) {
-  return (unsigned)((n + ZK_SHA256_THREADS - 1) / ZK_SHA256_THREADS);
-}
-
-// words: (nblocks * 16, n) padded big-endian words; out: (8, n).
+// words: (nblocks * 16, n) big-endian words of padded messages, or of all
+// but their last block when pad_kw is given: then that block is pure
+// padding and pad_kw its 64 words K[r] + W[r]. out: (8, n).
 extern "C" int zk_sha256_blocks(const void* words, long long n, int nblocks,
-                                void* out, void* stream) {
-  if (n < 1 || nblocks < 1 || n > (long long)ZK_SHA256_THREADS * 0x7fffffff)
+                                const void* pad_kw, void* out, void* stream) {
+  if (n < 1 || nblocks < 0 || (nblocks == 0 && !pad_kw) ||
+      n > (long long)ZK_SHA256_THREADS * 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   sha256_blocks_kernel<<<zk_sha256_grid(n), ZK_SHA256_THREADS, 0,
                          (cudaStream_t)stream>>>(
-      (const uint32_t*)words, n, nblocks, (uint32_t*)out);
+      (const uint32_t*)words, n, nblocks, pad_kw != nullptr,
+      zk_sha256_pad(pad_kw), (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 
-// level: (8, 2m) digests; out: (8, m), the digest of each pair.
-extern "C" int zk_sha256_nodes(const void* level, long long m, void* out,
-                               void* stream) {
-  if (m < 1 || m > (long long)ZK_SHA256_THREADS * 0x7fffffff)
+// level: (8, 2m) digests; pad_kw: K + W of the padding block of a 64-byte
+// message; out: (8, m), the digest of each pair.
+extern "C" int zk_sha256_nodes(const void* level, long long m,
+                               const void* pad_kw, void* out, void* stream) {
+  if (m < 1 || !pad_kw || m > (long long)ZK_SHA256_THREADS * 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   sha256_nodes_kernel<<<zk_sha256_grid(m), ZK_SHA256_THREADS, 0,
-                        (cudaStream_t)stream>>>((const uint32_t*)level, m,
-                                                (uint32_t*)out);
+                        (cudaStream_t)stream>>>(
+      (const uint32_t*)level, m, zk_sha256_pad(pad_kw), (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -48,12 +48,15 @@ SOURCES: dict[str, dict[str, list]] = {
                       "zk_scalar_mul_g1_shape": [_I, _P]},
     "scalar_mul_g2.cu": {"zk_scalar_mul_g2": _SCALAR_MUL,
                          "zk_scalar_mul_g2_shape": [_I, _P]},
-    "sha256.cu": {"zk_sha256_blocks": [_P, _LL, _I, _P, _P],
-                  "zk_sha256_nodes": [_P, _LL, _P, _P]},
+    "sha256.cu": {"zk_sha256_blocks": [_P, _LL, _I, _P, _P, _P],
+                  "zk_sha256_nodes": [_P, _LL, _P, _P, _P]},
+    "sha256_leaf.cu": {"zk_sha256_field_rows": [_P, _LL, _I, _I, _LL, _LL,
+                                                _P, _P, _P]},
     "mxu_ntt.cu": {"zk_mxu_pass": [_I, _P, _P, _P, _P, _P, _P, _P, _P]},
-    # a measurement loop, no kernel of a path (`chip_smoke.py` reads the
-    # card's integer multiply-add rate with it)
-    "rate.cu": {"zk_imad_rate": [_P, _I, _I, _I, _P]},
+    # measurement loops, no kernel of a path (`chip_smoke.py` reads the
+    # card's integer multiply-add rate and its shift / IMAD.HI streams)
+    "rate.cu": {"zk_imad_rate": [_P, _I, _I, _I, _P],
+                "zk_int_rate": [_I, _P, _I, _I, _I, _I, _P]},
 }
 
 _entry_points: dict[str, object] = {}

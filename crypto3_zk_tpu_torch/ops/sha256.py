@@ -4,16 +4,22 @@ version.
 Counterpart of `ops/sha256.py` of the JAX package (`sha256_batch_blocks`, a
 `lax.scan` of uint32 lane math, and `sha256_many`); used for the levels of
 sha2 Merkle trees (`commitments/merkle.py`). Kernel 7 (`csrc/sha256.cu`)
-runs one thread a message, in two forms:
+runs one thread a message, in three forms:
 
-- `sha256_blocks_hopper(words)`: padded messages as (nb * 16, n) big-endian
-  32-bit words, word planes first and messages innermost (word j of block b
-  of message i at row b*16 + j, column i);
+- `sha256_blocks_hopper(words, length=None)`: padded messages as
+  (nb * 16, n) big-endian 32-bit words, word planes first and messages
+  innermost (word j of block b of message i at row b*16 + j, column i);
+  given the messages' `length` in bytes, a multiple of 64, the last block
+  (pure padding) is not read: its rounds take `padding_schedule(length)`;
 - `sha256_nodes_hopper(level)`: a Merkle level's (8, 2m) digests read in
-  place, the digest of the pair (2i, 2i + 1) into column i; the fixed
-  padding block of a 64-byte message is built in registers.
+  place, the digest of the pair (2i, 2i + 1) into column i; the padding
+  block of a 64-byte message from `padding_schedule(64)`;
+- `sha256_field_rows_hopper(fs, rows)`: Merkle leaves of k field elements
+  from their Montgomery rows (k, NL, n): one `from_mont` (kernel 1) to the
+  canonical digit planes, which the kernel reads as the big-endian message
+  words of `fiat_shamir.field_to_bytes`, padding in registers.
 
-Both return (8, n) digest words. Words are `torch.int32` holding the 32 bits
+All return (8, n) digest words. Words are `torch.int32` holding the 32 bits
 of the big-endian word (two's complement); torch on the CPU has no `uint32`
 addition or right shift, so the plain versions compute in `int64` and mask.
 A wrapper runs its plain version only for a tensor that lies on the CPU; on
@@ -24,18 +30,26 @@ only, nothing in the port reads them.
 `field_rows_to_bytes` turns Montgomery leaf rows that live on a device into
 the canonical big-endian bytes of `transcript/fiat_shamir.py::
 field_to_bytes`, on that device; `pad_messages` pads them into word planes
-there. So a tree of device rows never goes through host ints.
+there (the leaf form's plain version, and `sha256_many`'s way in). So a
+tree of device rows never goes through host ints.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from .. import kernels as K
+from ..transcript.fiat_shamir import field_bytes_len
 from . import limbs as L
 
-LAUNCHES = {"sha256": 0, "sha256_nodes": 0}
-ELEMENTS = {"sha256": 0, "sha256_nodes": 0}
+LAUNCHES = {"sha256": 0, "sha256_nodes": 0, "sha256_field_rows": 0}
+ELEMENTS = {"sha256": 0, "sha256_nodes": 0, "sha256_field_rows": 0}
+# the leaf form's instances: an element's bytes / 2 (Goldilocks, the 255-bit
+# fields, MNT4 / MNT6 Fr, bls12-381 Fq)
+LEAF_HALVES = (4, 16, 19, 24)
 
 _K = [
     0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
@@ -53,7 +67,23 @@ _H0 = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
        0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
 _M32 = 0xFFFFFFFF
 NODE_PAD = [0x80000000] + [0] * 14 + [512]   # block 2 of a 64-byte message
-OPS_PER_COMPRESSION = 64 * 24 + 48 * 13 + 8   # 32-bit operations, about
+# instructions of the shortest schedule with three-input LOP3 / IADD3 and
+# funnel shifts: a round (Sigma1 3 SHF + 1 LOP3, ch 1, t1 2 IADD3, Sigma0 4,
+# maj 1, e 1, a 1), a schedule step (sigma0 4, sigma1 4, the sum 2), and
+# the 8 final additions
+ROUND_INSTRUCTIONS = 14
+SCHEDULE_INSTRUCTIONS = 10
+
+
+def sha256_counts(data_blocks: int, padding_blocks: int = 0) -> dict:
+    """Instructions a message issues at least: `data_blocks` compressions
+    with a schedule (64 rounds, 48 steps, 8 additions: 1,384) and
+    `padding_blocks` of pure padding whose K + W come from the host (64
+    rounds, 8 additions: 904)."""
+    data = 64 * ROUND_INSTRUCTIONS + 48 * SCHEDULE_INSTRUCTIONS + 8
+    pad = 64 * ROUND_INSTRUCTIONS + 8
+    return {"data_compression": data, "padding_compression": pad,
+            "instructions": data_blocks * data + padding_blocks * pad}
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +102,37 @@ def _rotr(x, n):
     return ((x >> n) | (x << (32 - n))) & _M32
 
 
+def _sigma0(x):
+    return _rotr(x, 7) ^ _rotr(x, 18) ^ (x >> 3)
+
+
+def _sigma1(x):
+    return _rotr(x, 17) ^ _rotr(x, 19) ^ (x >> 10)
+
+
+@functools.lru_cache(maxsize=None)
+def padding_schedule(length: int) -> tuple[int, ...]:
+    """The 64 words K[r] + W[r] (mod 2^32, Python ints) of the last block of
+    a message of `length` bytes, a multiple of 64: pure padding (0x80,
+    zeros, the bit length), so its schedule depends on the length alone."""
+    if length < 0 or length % 64:
+        raise ValueError(f"sha256: a block of pure padding ends a message "
+                         f"whose length is a multiple of 64, not {length}")
+    bits = 8 * length
+    w = [0x80000000] + [0] * 13 + [(bits >> 32) & _M32, bits & _M32]
+    for r in range(16, 64):
+        w.append((_sigma1(w[r - 2]) + w[r - 7] + _sigma0(w[r - 15])
+                  + w[r - 16]) & _M32)
+    return tuple((k + x) & _M32 for k, x in zip(_K, w))
+
+
+@functools.lru_cache(maxsize=None)
+def _padding_arg(length: int):
+    """`padding_schedule(length)` as the C array the entry points copy into
+    their 256-byte kernel argument (kept alive here)."""
+    return (ctypes.c_uint32 * 64)(*padding_schedule(length))
+
+
 def _compress_plain(st: list, w: list) -> list:
     """One compression of the 16 word rows `w` ((n,) int64 each) into the
     state rows `st`."""
@@ -79,10 +140,8 @@ def _compress_plain(st: list, w: list) -> list:
     a, b, c, d, e, f, g, h = st
     for r in range(64):
         if r >= 16:
-            w15, w2 = w[(r + 1) & 15], w[(r + 14) & 15]
-            s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
-            s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
-            w[r & 15] = (w[r & 15] + s0 + w[(r + 9) & 15] + s1) & _M32
+            w[r & 15] = (w[r & 15] + _sigma0(w[(r + 1) & 15])
+                         + w[(r + 9) & 15] + _sigma1(w[(r + 14) & 15])) & _M32
         s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
         ch = (e & f) ^ (~e & g & _M32)
         t1 = (h + s1 + ch + _K[r] + w[r & 15]) & _M32
@@ -124,6 +183,12 @@ def sha256_nodes_plain(level: torch.Tensor) -> torch.Tensor:
 # kernel 7
 # ---------------------------------------------------------------------------
 
+def sha256_field_rows_plain(fs, rows: torch.Tensor) -> torch.Tensor:
+    """Kernel 7's leaf form, whole-tensor: (k, NL, n) Montgomery rows ->
+    (8, n), through the canonical bytes and the padded word planes."""
+    return sha256_blocks_plain(pad_messages(field_rows_to_bytes(fs, rows)))
+
+
 def _check_blocks(words: torch.Tensor) -> None:
     if words.dim() != 2 or words.shape[0] % 16 or words.shape[0] == 0 \
             or words.shape[1] == 0 or words.dtype != torch.int32:
@@ -138,18 +203,29 @@ def _check_level(level: torch.Tensor) -> None:
                          f"not {tuple(level.shape)} {level.dtype}")
 
 
-def sha256_blocks_hopper(words: torch.Tensor) -> torch.Tensor:
+def sha256_blocks_hopper(words: torch.Tensor,
+                         length: int | None = None) -> torch.Tensor:
     """Kernel 7, block form: the digests (8, n) of n padded messages given
-    as (nb * 16, n) big-endian words."""
+    as (nb * 16, n) big-endian words. With the messages' `length` in bytes
+    and a multiple of 64 (nb = length / 64 + 1), the last block is pure
+    padding: the kernel reads the nb - 1 blocks before it and runs that
+    one from `padding_schedule(length)`. Any other length, or none, runs
+    every block through the schedule."""
     _check_blocks(words)
+    pad = length is not None and length % 64 == 0
+    if pad and words.shape[0] != 16 * padded_blocks(length):
+        raise ValueError(f"sha256: {words.shape[0] // 16} blocks are not "
+                         f"the padded messages of {length} bytes")
     if not words.is_cuda:
         return sha256_blocks_plain(words)
     words = words.contiguous()
     n = words.shape[1]
     out = torch.empty((8, n), dtype=torch.int32, device=words.device)
-    K.check(K.entry("zk_sha256_blocks")(words.data_ptr(), n,
-                                        words.shape[0] // 16, out.data_ptr(),
-                                        K.stream_ptr()), "zk_sha256_blocks")
+    nblocks = words.shape[0] // 16 - pad
+    kw = ctypes.addressof(_padding_arg(length)) if pad else None
+    K.check(K.entry("zk_sha256_blocks")(words.data_ptr(), n, nblocks, kw,
+                                        out.data_ptr(), K.stream_ptr()),
+            "zk_sha256_blocks")
     LAUNCHES["sha256"] += 1
     ELEMENTS["sha256"] += n
     return out
@@ -164,11 +240,69 @@ def sha256_nodes_hopper(level: torch.Tensor) -> torch.Tensor:
     level = level.contiguous()
     m = level.shape[1] // 2
     out = torch.empty((8, m), dtype=torch.int32, device=level.device)
-    K.check(K.entry("zk_sha256_nodes")(level.data_ptr(), m, out.data_ptr(),
-                                       K.stream_ptr()), "zk_sha256_nodes")
+    K.check(K.entry("zk_sha256_nodes")(level.data_ptr(), m,
+                                       ctypes.addressof(_padding_arg(64)),
+                                       out.data_ptr(), K.stream_ptr()),
+            "zk_sha256_nodes")
     LAUNCHES["sha256_nodes"] += 1
     ELEMENTS["sha256_nodes"] += m
     return out
+
+
+def leaf_half(fs) -> int:
+    """An element's bytes / 2, the leaf form's instance; `ValueError` for a
+    width it has none of."""
+    nb = field_bytes_len(fs)
+    if nb % 2 or nb // 2 not in LEAF_HALVES:
+        raise ValueError(f"sha256: no leaf instance for {fs.name}'s {nb} "
+                         f"bytes an element (instances: "
+                         f"{[2 * h for h in LEAF_HALVES]})")
+    return nb // 2
+
+
+def sha256_field_digits_hopper(digits: torch.Tensor, k: int,
+                               half: int) -> torch.Tensor:
+    """Kernel 7, leaf form, on the card: (8, n) digests of n leaves of k
+    elements of 2 * half bytes, from canonical 16-bit digit planes
+    `digits` (NL, k, n) int32 (`L.from_mont` of the rows), NL >= half."""
+    nl = digits.shape[0]
+    if digits.dim() != 3 or digits.shape[1] != k or nl < half \
+            or digits.dtype != torch.int32 or half not in LEAF_HALVES \
+            or not digits.is_cuda:
+        raise ValueError(f"sha256: leaf digits are (NL >= {half}, {k}, n) "
+                         f"int32 on the card, not {tuple(digits.shape)} "
+                         f"{digits.dtype} on {digits.device}")
+    digits = digits.contiguous()
+    n = digits.shape[2]
+    if digits.numel() >= 1 << 31:
+        raise ValueError(f"sha256: {digits.numel()} digits: the leaf form "
+                         f"indexes below 2^31")
+    length = 2 * half * k
+    kw = ctypes.addressof(_padding_arg(length)) if length % 64 == 0 \
+        else None
+    out = torch.empty((8, n), dtype=torch.int32, device=digits.device)
+    K.check(K.entry("zk_sha256_field_rows")(
+        digits.data_ptr(), n, k, half, digits.stride(0), digits.stride(1),
+        kw, out.data_ptr(), K.stream_ptr()), "zk_sha256_field_rows")
+    LAUNCHES["sha256_field_rows"] += 1
+    ELEMENTS["sha256_field_rows"] += n
+    return out
+
+
+def sha256_field_rows_hopper(fs, rows: torch.Tensor) -> torch.Tensor:
+    """Kernel 7, leaf form: the digests (8, n) of n Merkle leaves, leaf i
+    the `field_to_bytes` of elements rows[:, :, i] one after another, from
+    (k, NL, n) Montgomery rows: `from_mont` (kernel 1) to the canonical
+    digits, then the leaf kernel reads them as message words."""
+    if rows.dim() != 3 or rows.shape[1] != fs.nl or rows.shape[2] == 0 \
+            or rows.shape[0] == 0:
+        raise ValueError(f"sha256: leaf rows are (k, {fs.nl}, n), not "
+                         f"{tuple(rows.shape)}")
+    half = leaf_half(fs)
+    if not rows.is_cuda:
+        return sha256_field_rows_plain(fs, rows)
+    digits = L.from_mont(fs, rows.permute(1, 0, 2))         # (NL, k, n)
+    return sha256_field_digits_hopper(digits, rows.shape[0], half)
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +338,7 @@ def field_rows_to_bytes(fs, rows: torch.Tensor) -> torch.Tensor:
     (nb) bytes, big-endian: `fiat_shamir.field_to_bytes` on the rows'
     device."""
     k, nl, n = rows.shape
-    nb = (fs.bits + 7) // 8
+    nb = field_bytes_len(fs)
     digits = L.from_mont(fs, rows.permute(1, 0, 2).reshape(nl, k * n))
     d = digits.to(torch.int64).reshape(nl, k, n)
     le = torch.stack([d & 0xFF, d >> 8], dim=1).reshape(2 * nl, k, n)
@@ -246,4 +380,4 @@ def sha256_many(messages: list[bytes], device=None) -> list[bytes]:
     raw = np.frombuffer(b"".join(messages), dtype=np.uint8) \
         .reshape(len(messages), length)
     msgs = torch.from_numpy(raw.astype(np.int64)).to(device)
-    return digests_to_bytes(sha256_blocks_hopper(pad_messages(msgs)))
+    return digests_to_bytes(sha256_blocks_hopper(pad_messages(msgs), length))

@@ -35,17 +35,16 @@ median (ms). Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import hashlib
 import json
 import re
-import subprocess
 
 import torch
 
 from .. import kernels as K
 from ..fields import params as P
 from ..ops import mxu_ntt as MX
+from . import timing as T
 
 SOURCE = "mxu_ntt.cu"
 PARTS = {0: "pass", 1: "products alone", 2: "epilogue alone"}
@@ -56,54 +55,26 @@ def build_parts() -> dict:
     and 2, all `nvcc` runs at once."""
     src = K.CSRC / SOURCE
     out_dir = K.build_dir() / "mxu_parts"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = []
+    jobs = []
     for parts in PARTS:
         define = f"-DZK_MXU_PARTS={parts}"
         tag = hashlib.sha1(K.headers() + src.read_bytes()
                            + define.encode()).hexdigest()[:12]
-        lib = out_dir / f"lib{src.stem}-{tag}.so"
-        cmd = [K._nvcc(), "-Xptxas=-v", "-gencode",
-               "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", define, "-I", str(K.CSRC),
-               "-o", str(lib), str(src)]
-        procs.append((parts, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    built = {}
-    for parts, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for ZK_MXU_PARTS={parts}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).zk_mxu_pass
-        fn.argtypes = K.SOURCES[SOURCE]["zk_mxu_pass"]
-        fn.restype = ctypes.c_int
-        built[parts] = (fn, log)
-    return built
+        jobs.append((parts, src, out_dir / f"lib{src.stem}-{tag}.so",
+                     (define,)))
+    return {parts: (T.bind(lib, {"zk_mxu_pass":
+                                 K.SOURCES[SOURCE]["zk_mxu_pass"]})
+                    ["zk_mxu_pass"], log)
+            for parts, (lib, log) in T.nvcc_all(jobs).items()}
 
 
 def ptxas_by_side(log: str) -> dict:
     """`ptxas -v` output -> {table side: {"registers", "spill_stores",
-    "spill_loads"}} for every instance of kernel 8 in it."""
-    out, key = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for)"
-                      r" '?[^ ']*mxu_pass_kernelILi(\d+)E", line)
-        if m:
-            key = int(m.group(1))
-            out.setdefault(key, {})
-            continue
-        if key is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out[key]["spill_stores"] = int(m.group(1))
-            out[key]["spill_loads"] = int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[key]["registers"] = int(m.group(1))
-    return out
+    "spill_loads", "stack_frame"}} for every instance of kernel 8 in it."""
+    def key_of(function: str):
+        m = re.search(r"mxu_pass_kernelILi(\d+)E", function)
+        return int(m.group(1)) if m else None
+    return T.ptxas_table(log, key_of)
 
 
 def rand_input(fs, g, gen) -> torch.Tensor:
@@ -137,28 +108,6 @@ def launcher(fs, g, fn, inputs, blocks: int, one_max: int):
     return launch, out
 
 
-def sample_ms(launch, reps: int) -> float:
-    """Mean device ms of `reps` launches queued behind a spin kernel (the
-    spin lengthened until it outlasts the host's enqueueing)."""
-    launch(0)
-    torch.cuda.synchronize()
-    spin = 20_000_000
-    for _ in range(4):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
-        for r in range(reps):
-            launch(r % 2)
-        end.record()
-        held = not start.query()
-        torch.cuda.synchronize()
-        if held:
-            return start.elapsed_time(end) / reps
-        spin *= 4
-    raise RuntimeError("the stream drained during a timed loop")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=5)
@@ -167,10 +116,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("mxu_pass_times: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = T.card_name()
     print(f"device: {card}", flush=True)
 
     built = build_parts()
@@ -211,7 +157,8 @@ def main(argv=None) -> int:
     times = {name: [] for name in names}
     for r in range(args.rounds):
         for name in names[r % len(names):] + names[:r % len(names)]:
-            times[name].append(sample_ms(forms[name][0], args.reps))
+            times[name].append(T.sample_ms(forms[name][0], 2,
+                                          args.reps))
     result = {"card": card, "rounds": args.rounds, "reps": args.reps,
               "ms": times,
               "median_ms": {k: sorted(v)[len(v) // 2]

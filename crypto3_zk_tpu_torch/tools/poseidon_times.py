@@ -39,8 +39,6 @@ import ctypes
 import json
 import pathlib
 import re
-import subprocess
-import time
 
 import torch
 
@@ -50,6 +48,7 @@ from ..ops import hopper_hash as HH
 from ..ops import nil_poseidon as NPO
 from ..ops import poseidon as PO
 from . import sass_mix as SM
+from . import timing as T
 
 SOURCE = "poseidon.cu"
 BUILDS = ("parent", "new")
@@ -66,68 +65,22 @@ def build(parent: pathlib.Path) -> dict:
     at once, and `rate.cu` (the multiply-add rate loop, for its SASS) as
     "rate", with no entry."""
     out_dir = K.build_dir() / "poseidon_forms"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = [("rate", K.CSRC / "rate.cu", K.CSRC),
-            ("parent", parent / SOURCE, parent),
-            ("new", K.CSRC / SOURCE, K.CSRC)]
-    procs, t0 = [], time.perf_counter()
-    for name, src, inc in jobs:
-        lib = out_dir / f"lib{name}.so"
-        cmd = [K._nvcc(), "-Xptxas=-v", "-gencode",
-               "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-I", str(inc), "-o",
-               str(lib), str(src)]
-        procs.append((name, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    built = {}
-    for name, lib, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        print(f"{name}: built in {time.perf_counter() - t0:.1f} s (all "
-              f"builds started together)", flush=True)
-        fns = {}
-        if name != "rate":
-            cdll = ctypes.CDLL(str(lib))
-            for entry, argtypes in K.SOURCES[SOURCE].items():
-                fn = getattr(cdll, entry)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                fns[entry] = fn
-        built[name] = (fns, log, lib)
-    return built
+    libs = T.nvcc_all([(name, src, out_dir / f"lib{name}.so", ())
+                       for name, src in (("rate", K.CSRC / "rate.cu"),
+                                         ("parent", parent / SOURCE),
+                                         ("new", K.CSRC / SOURCE))])
+    return {name: ({} if name == "rate" else T.bind(lib, K.SOURCES[SOURCE]),
+                   log, lib) for name, (lib, log) in libs.items()}
 
 
 def ptxas_forms(log: str) -> dict:
     """`ptxas -v` output -> {kernel instance (mangled name from the form's
     name on): {"registers", "spill_stores", "spill_loads", "stack_frame"}}
-    for every
-    instance of each form in it."""
-    out, key = {}, None
-    for line in log.splitlines():
-        f = re.search(r"(?:Compiling entry function|Function properties for)"
-                      r" '?([^ ']+)", line)
-        if f:
-            m = re.match(r"_Z\d+(poseidon_\w*?kernel\w*?EE)v", f.group(1))
-            key = m.group(1) if m else None
-            if key:
-                out.setdefault(key, {})
-            continue
-        if key is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            out[key]["spill_stores"] = int(m.group(1))
-            out[key]["spill_loads"] = int(m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[key]["registers"] = int(m.group(1))
-        m = re.search(r"(\d+) bytes stack frame", line)
-        if m:
-            out[key]["stack_frame"] = int(m.group(1))
-    return out
+    for every instance of each form in it."""
+    def key_of(function: str):
+        m = re.match(r"_Z\d+(poseidon_\w*?kernel\w*?EE)v", function)
+        return m.group(1) if m else None
+    return T.ptxas_table(log, key_of)
 
 
 def sass_per_thread(lib: pathlib.Path, pp, kernel: str) -> dict:
@@ -260,28 +213,6 @@ def rand_digests(fs, n: int, gen) -> torch.Tensor:
     return rand_states(fs, n, gen)[:, 0].contiguous()
 
 
-def sample_ms(launch, n_sets: int, reps: int) -> float:
-    """Mean device ms of `reps` launches queued behind a spin kernel (the
-    spin lengthened until it outlasts the host's enqueueing)."""
-    launch(0)
-    torch.cuda.synchronize()
-    spin = 20_000_000
-    for _ in range(4):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
-        for r in range(reps):
-            launch(r % n_sets)
-        end.record()
-        held = not start.query()
-        torch.cuda.synchronize()
-        if held:
-            return start.elapsed_time(end) / reps
-        spin *= 4
-    raise RuntimeError("the stream drained during a timed loop")
-
-
 def cases_for(built: dict, label: str, pp, gen, dense_parent: bool) -> dict:
     """{(label, form, states, build): (launch, input sets)} for every case
     of the parameter set, each build's output held against the plain
@@ -342,10 +273,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("poseidon_times: no CUDA device")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = T.card_name()
     print(f"device: {card}", flush=True)
     built = build(pathlib.Path(args.parent))
     ptxas = {n: ptxas_forms(b[1]) for n, b in built.items() if n != "rate"}
@@ -390,7 +318,7 @@ def main(argv=None) -> int:
     for r in range(args.rounds):
         for k in keys[r % len(keys):] + keys[:r % len(keys)]:
             launch, n_sets = cases[k]
-            times[k].append(sample_ms(launch, n_sets, args.reps))
+            times[k].append(T.sample_ms(launch, n_sets, args.reps))
     median = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     for k in keys:
         print(f"{k[0]} {k[1]} {k[2]} states {k[3]}: median {median[k]:.4f} "

@@ -2,14 +2,15 @@
 spends its time on the GPU.
 
     python3 -m crypto3_zk_tpu_torch.tools.profile_prove [--lpc | --placeholder]
-        [--rows-log2 K] [--out f.json]
+        [--rows-log2 K] [--merkle-hash sha2_256] [--out f.json]
 
 By default it generates a key for the product-chain circuit of 2^16
 constraints over alt_bn128 (the size `chip_smoke.py` proves). With `--lpc`
 it builds the LPC deployment `chip_smoke.py` drives instead
 (`tools/lpc_fixture.py`: 12 polynomials of degree < 2^16 over bls12-381 Fr,
-D0 = 2^18, lambda 40, Poseidon trees) and commits both batches; "prove" below
-is then one `LPCScheme.proof_eval`. With `--placeholder` it preprocesses the
+D0 = 2^18, lambda 40, Poseidon trees, or with `--merkle-hash sha2_256`
+sha2 trees, kernel 7) and commits both batches; "prove" below is then one
+`LPCScheme.proof_eval`. With `--placeholder` it preprocesses the
 Placeholder deployment `chip_smoke.py` drives (`tools/placeholder_fixture.py`:
 `placeholder_chain` at 2^16 rows over bls12-381 Fr, D0 = 2^18, lambda 40,
 Poseidon trees; `--rows-log2` sets another size), and "prove" is one
@@ -22,6 +23,10 @@ once to warm up
    kernel times), the idle share, the kernels ranked by device time, and
    every kernel of the port's own (`port_kernels`), however small;
 3. under `cProfile`, for the host functions ranked by cumulative time.
+
+The device profile sums kernel 5 by form (`poseidon`) and kernel 7 by form
+(`sha256`), and lists the 25 kernels of most device time, the library's
+(torch's own elementwise and copy kernels) among them.
 
 Both profilers slow the host down, so the idle share is given against the
 profiled wall time and against the plain one. Prints one JSON object, and
@@ -49,7 +54,10 @@ LOG2_CONSTRAINTS = 16
 _OWN_KERNELS = ("void elementwise_kernel<", "void ntt_rows_kernel<",
                 "void inv_scans_kernel<", "void inv_tail_kernel<",
                 "void mul3_kernel<", "void poseidon_kernel<",
-                "void poseidon_shared_kernel<", "void poseidon_tree_kernel<")
+                "void poseidon_shared_kernel<", "void poseidon_tree_kernel<",
+                "void scalar_mul_kernel<", "sha256_blocks_kernel(",
+                "sha256_nodes_kernel(", "void sha256_field_rows_kernel<",
+                "void mxu_pass_kernel<")
 TOXIC = {"t": 0x1234567, "alpha": 0x2345678, "beta": 0x3456789,
          "gamma": 0x456789A, "delta": 0x56789AB}
 
@@ -74,6 +82,19 @@ def poseidon_device_ms(device: dict) -> dict:
             for form, (ms, calls) in out.items()}
 
 
+def sha256_device_ms(device: dict) -> dict:
+    """Device ms and calls of each form of kernel 7 in a `_device_profile`
+    result."""
+    out = {}
+    for k in device["port_kernels"]:
+        if "sha256_" in k["name"]:
+            form = k["name"].split("sha256_", 1)[1].split("_kernel", 1)[0]
+            ms, calls = out.get(form, (0.0, 0))
+            out[form] = (ms + k["device_ms"], calls + k["calls"])
+    return {form: {"device_ms": ms, "calls": calls}
+            for form, (ms, calls) in out.items()}
+
+
 def _device_profile(prove) -> dict:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -89,10 +110,11 @@ def _device_profile(prove) -> dict:
                             "device_ms": us / 1e3})
     kernels.sort(key=lambda k: -k["device_ms"])
     busy = sum(k["device_ms"] for k in kernels) / 1e3
-    own = [k for k in kernels if k["name"].startswith(_OWN_KERNELS)]
+    own = [k for k in kernels
+           if any(name in k["name"] for name in _OWN_KERNELS)]
     return {"wall_s_profiled": wall, "device_busy_s": busy,
             "device_kernel_launches": sum(k["calls"] for k in kernels),
-            "top_kernels": kernels[:15], "port_kernels": own}
+            "top_kernels": kernels[:25], "port_kernels": own}
 
 
 def _host_profile(prove) -> dict:
@@ -131,14 +153,15 @@ def _groth16_setup() -> tuple:
     return facts, prove, accept, lambda: dict(G16.LAST_PROVE_SECONDS)
 
 
-def _lpc_setup() -> tuple:
-    """The LPC workload, as `_groth16_setup`."""
+def _lpc_setup(merkle_hash: str = "poseidon") -> tuple:
+    """The LPC workload over `merkle_hash` trees, as `_groth16_setup`."""
     from ..commitments.fri import PhaseClock
     from .lpc_fixture import LPCRun
 
-    run = LPCRun(LOG2_CONSTRAINTS, 40, "cuda")
+    run = LPCRun(LOG2_CONSTRAINTS, 40, "cuda", merkle_hash=merkle_hash)
     run.commit(torch.cuda.synchronize)
-    facts = {"workload": "lpc_proof_eval", "log2_degree": LOG2_CONSTRAINTS,
+    facts = {"workload": "lpc_proof_eval", "merkle_hash": merkle_hash,
+             "log2_degree": LOG2_CONSTRAINTS,
              "domain_size": run.params.D[0].n, "lambda": 40,
              "polynomials": [len(s) for s in run.sizes],
              "commit_s": dict(run.seconds)}
@@ -197,6 +220,10 @@ def main(argv=None) -> int:
                        help="profile one Placeholder prove at 2^16 rows")
     ap.add_argument("--rows-log2", type=int, default=LOG2_CONSTRAINTS,
                     help="the Placeholder table's rows, log2 (default 16)")
+    ap.add_argument("--merkle-hash", default="poseidon",
+                    choices=("poseidon", "sha2_256"),
+                    help="the LPC trees' hash (with --lpc; sha2_256 runs "
+                         "kernel 7)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -206,7 +233,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
 
     facts, prove, accept, phases_of = (
-        _lpc_setup() if args.lpc else
+        _lpc_setup(args.merkle_hash) if args.lpc else
         _placeholder_setup(args.rows_log2) if args.placeholder
         else _groth16_setup())
     _timed(prove)                                          # warm-up
@@ -221,6 +248,7 @@ def main(argv=None) -> int:
     device["idle_share_against_plain_wall"] = \
         1 - device["device_busy_s"] / wall
     device["poseidon"] = poseidon_device_ms(device)
+    device["sha256"] = sha256_device_ms(device)
     result = {"card": card, **facts, "prove_wall_s": wall,
               "phases_s": phases, "device": device,
               "host": _host_profile(prove)}

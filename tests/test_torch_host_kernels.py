@@ -4,7 +4,9 @@ PyTorch versions and Python integers, bit for bit. This runs the code of
 `csrc/*.cu` itself (indexing, strides, shared memory, barriers, the carry
 chains of `field.cuh` through their host definitions), which the wrappers
 never do on the CPU. Skipped where there is no `g++`."""
+import ctypes
 import random
+import types
 
 import numpy as np
 import pytest
@@ -562,8 +564,8 @@ def test_sha256_kernel_block_form_matches_its_plain_version(entry, length):
     assert words.shape == (16 * SH.padded_blocks(length), 200)
     out = _filled((8, 200))
     assert entry("zk_sha256_blocks")(words.data_ptr(), 200,
-                                     words.shape[0] // 16, out.data_ptr(),
-                                     None) == 0
+                                     words.shape[0] // 16, None,
+                                     out.data_ptr(), None) == 0
     assert torch.equal(out, SH.sha256_blocks_plain(words))
     assert SH.digests_to_bytes(out) == [hashlib.sha256(m).digest()
                                         for m in msgs]
@@ -579,14 +581,166 @@ def test_sha256_kernel_node_form_matches_its_plain_version(entry):
                for i in range(260)]
     level = SH.bytes_to_digests(digests, "cpu")
     out = _filled((8, 130))
-    assert entry("zk_sha256_nodes")(level.data_ptr(), 130, out.data_ptr(),
-                                    None) == 0
+    kw = ctypes.addressof(SH._padding_arg(64))
+    assert entry("zk_sha256_nodes")(level.data_ptr(), 130, kw,
+                                    out.data_ptr(), None) == 0
     assert torch.equal(out, SH.sha256_nodes_plain(level))
     assert SH.digests_to_bytes(out) == [
         hashlib.sha256(digests[2 * i] + digests[2 * i + 1]).digest()
         for i in range(130)]
-    assert entry("zk_sha256_nodes")(level.data_ptr(), 0, out.data_ptr(),
+    assert entry("zk_sha256_nodes")(level.data_ptr(), 0, kw, out.data_ptr(),
                                     None) != 0
+    assert entry("zk_sha256_nodes")(level.data_ptr(), 130, None,
+                                    out.data_ptr(), None) != 0
+
+
+def _sha256_messages(n, length, seed):
+    rng = random.Random(seed)
+    return [bytes(rng.randrange(256) for _ in range(length))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 127, 129])
+@pytest.mark.parametrize("length", [55, 56, 64, 119, 120, 256])
+def test_sha256_kernel_block_form_padding_block(entry, length, n):
+    """The block form on lengths with the bit length in the last data block
+    (55, 119), in a block of its own after data (56, 120) and in a block of
+    pure padding (64, 256), for one ragged and two blocks of threads: every
+    block read and run through the schedule, and (64, 256) the last block
+    left unread, its rounds from `padding_schedule`."""
+    import hashlib
+
+    from crypto3_zk_tpu_torch.ops import sha256 as SH
+    msgs = _sha256_messages(n, length, 1000 * length + n)
+    raw = torch.tensor([list(m) for m in msgs], dtype=torch.int64)
+    words = SH.pad_messages(raw.reshape(n, length))
+    want = SH.sha256_blocks_plain(words)
+    assert SH.digests_to_bytes(want) == [hashlib.sha256(m).digest()
+                                         for m in msgs]
+    runs = [(words.shape[0] // 16, None)]
+    if length % 64 == 0:
+        runs.append((words.shape[0] // 16 - 1,
+                     ctypes.addressof(SH._padding_arg(length))))
+    for nblocks, kw in runs:
+        out = _filled((8, n))
+        assert entry("zk_sha256_blocks")(words.data_ptr(), n, nblocks, kw,
+                                         out.data_ptr(), None) == 0
+        assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("m", [1, 127, 129])
+def test_sha256_kernel_node_form_ragged(entry, m):
+    from crypto3_zk_tpu_torch.ops import sha256 as SH
+    rng = np.random.default_rng(m)
+    level = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, (8, 2 * m),
+                                          dtype=np.int64)).to(torch.int32)
+    out = _filled((8, m))
+    assert entry("zk_sha256_nodes")(level.data_ptr(), m,
+                                    ctypes.addressof(SH._padding_arg(64)),
+                                    out.data_ptr(), None) == 0
+    assert torch.equal(out, SH.sha256_nodes_plain(level))
+
+
+def _leaf_rows(fs, k, n, seed):
+    """(values [k][n], (k, NL, n) Montgomery rows), values from numpy with
+    0 and p - 1 in the first leaf."""
+    rng = np.random.default_rng(seed)
+    vals = [[int.from_bytes(rng.bytes(fs.bits // 8 + 8), "little") % fs.p
+             for _ in range(n)] for _ in range(k)]
+    vals[0][0] = 0
+    vals[-1][0] = fs.p - 1
+    return vals, torch.stack([TL.encode(fs, v, "cpu") for v in vals])
+
+
+def _leaf_kernel(entry, fs, rows, layout):
+    """Kernel 7's leaf form on the canonical digits of `rows`, laid out
+    (NL, k, n) as the wrapper gives them, or (k, NL, n)."""
+    from crypto3_zk_tpu_torch.ops import sha256 as SH
+    k, nl, n = rows.shape
+    half = SH.leaf_half(fs)
+    digits = TL.from_mont(fs, rows.permute(1, 0, 2)).contiguous()
+    if layout == "k_nl_n":
+        digits = digits.permute(1, 0, 2).contiguous()
+        sd, se = n, nl * n
+    else:
+        sd, se = k * n, n
+    length = 2 * half * k
+    kw = ctypes.addressof(SH._padding_arg(length)) if length % 64 == 0 \
+        else None
+    out = _filled((8, n))
+    assert entry("zk_sha256_field_rows")(digits.data_ptr(), n, k, half, sd,
+                                         se, kw, out.data_ptr(), None) == 0
+    return out
+
+
+# (field, elements a leaf): every instance at 1, 2 and 8 elements, and the
+# two leaves whose bit length takes a block of its own
+_LEAF_CASES = [(fs, k) for fs in (TP.BLS12_381_FR, GL, MNT4, BLS)
+               for k in (1, 2, 8)] + [(GL, 7), (MNT4, 5)]
+
+
+@pytest.mark.parametrize("n", [1, 127, 129])
+@pytest.mark.parametrize("fs,k", _LEAF_CASES,
+                         ids=[f"{fs.name}-{k}" for fs, k in _LEAF_CASES])
+def test_sha256_kernel_leaf_form_matches_its_plain_version(entry, fs, k, n):
+    """The leaf form on every instance (8, 32, 38 and 48 bytes an element:
+    words straddle MNT4 Fr's elements), k elements a leaf, against its
+    plain version and `hashlib` of `field_to_bytes`. A message that fills
+    its last block ends in a block of pure padding (32 bytes: one
+    bls12-381 Fr value); 7 Goldilocks and 5 MNT4 Fr values (56 and 190
+    bytes) leave 56 and 62 bytes in their last data block, so that the
+    0x80 byte ends that block and the bit length takes a block of its
+    own."""
+    import hashlib
+
+    from crypto3_zk_tpu_torch.ops import sha256 as SH
+    from crypto3_zk_tpu_torch.transcript.fiat_shamir import field_to_bytes
+    vals, rows = _leaf_rows(fs, k, n, 97 * k + n)
+    want = SH.sha256_field_rows_plain(fs, rows)
+    assert torch.equal(SH.sha256_field_rows_hopper(fs, rows), want)
+    for layout in ("nl_k_n", "k_nl_n") if n == 129 else ("nl_k_n",):
+        assert torch.equal(_leaf_kernel(entry, fs, rows, layout), want)
+    got = SH.digests_to_bytes(want)
+    for i in (0, n - 1):
+        msg = b"".join(field_to_bytes(fs, vals[e][i]) for e in range(k))
+        assert got[i] == hashlib.sha256(msg).digest()
+
+
+def test_sha256_kernel_leaf_form_refuses_what_it_does_not_take(entry):
+    from crypto3_zk_tpu_torch.ops import sha256 as SH
+    fs = TP.BLS12_381_FR
+    _, rows = _leaf_rows(fs, 2, 4, 3)
+    digits = TL.from_mont(fs, rows.permute(1, 0, 2)).contiguous()
+    out = _filled((8, 4))
+    kw = ctypes.addressof(SH._padding_arg(64))
+    ok = dict(n=4, k=2, half=16, sd=8, se=4, kw=kw)
+
+    def run(**change):
+        a = {**ok, **change}
+        return entry("zk_sha256_field_rows")(
+            digits.data_ptr(), a["n"], a["k"], a["half"], a["sd"], a["se"],
+            a["kw"], out.data_ptr(), None)
+
+    assert run() == 0
+    assert torch.equal(out, SH.sha256_field_rows_plain(fs, rows))
+    for change in ({"half": 12}, {"kw": None}, {"n": 0}, {"k": 0},
+                   {"sd": 0}, {"se": 1 << 31}):
+        assert run(**change) != 0
+    for bits in (56, 320):           # 7 bytes an element; 40, no instance
+        with pytest.raises(ValueError):
+            SH.leaf_half(types.SimpleNamespace(name=f"{bits}-bit", bits=bits))
+
+
+@pytest.mark.parametrize("mode", range(11))
+def test_int_rate_streams_run(entry, mode):
+    """The rate loops of `csrc/rate.cu` run on the CPU (what they compute is
+    a checksum; their speed means something on the card only), and an
+    unknown mode is refused."""
+    out = _filled((2 * 32,))
+    assert entry("zk_int_rate")(mode, out.data_ptr(), 2, 32, 3,
+                                0x9E3779B1 - (1 << 32), None) == 0
+    assert (out != -7).any()
+    assert entry("zk_int_rate")(11, out.data_ptr(), 2, 32, 3, 3, None) != 0
 
 
 @pytest.mark.parametrize("log_m,b", [(1, 5), (2, 3), (4, 33), (5, 8),

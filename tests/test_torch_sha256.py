@@ -17,6 +17,7 @@ from crypto3_zk_tpu.commitments import merkle as RM
 from crypto3_zk_tpu.fields import params as P
 from crypto3_zk_tpu.ops import limbs as RL
 from crypto3_zk_tpu.ops import sha256 as RS
+from crypto3_zk_tpu.transcript import fiat_shamir as RF
 from crypto3_zk_tpu_torch import convert as C
 from crypto3_zk_tpu_torch.commitments import merkle as TM
 from crypto3_zk_tpu_torch.fields import params as TP
@@ -81,6 +82,78 @@ def test_leaf_bytes_from_device_rows(field):
     for j in range(n):
         want = b"".join(field_to_bytes(fs, vals[i][j]) for i in range(k))
         assert bytes(got[j].tolist()) == want
+
+
+@pytest.mark.parametrize("field,k", [
+    (f, k) for f in ("BLS12_381_FR", "GOLDILOCKS", "MNT4_FR", "BLS12_381_FQ")
+    for k in (1, 2, 8)] + [("GOLDILOCKS", 7), ("MNT4_FR", 5)])
+def test_leaf_form_equals_the_jax_package(field, k):
+    """`sha256_field_rows_hopper` (on the CPU its plain version) on leaves
+    of k elements made with numpy from a seed, against the JAX package's
+    `sha256_batch_blocks` on its own padding of the same leaves'
+    `field_to_bytes` and its `sha256_many`; 7 Goldilocks and 5 MNT4 Fr
+    values put the bit length in a block of its own."""
+    fs, rfs = getattr(TP, field), getattr(P, field)
+    rng = np.random.default_rng(k * 131 + fs.nl)
+    n = 6
+    vals = [[int.from_bytes(rng.bytes(fs.bits // 8 + 8), "little") % fs.p
+             for _ in range(n)] for _ in range(k)]
+    vals[0][0] = fs.p - 1
+    rows = torch.stack([TL.encode(fs, v, "cpu") for v in vals])
+    got = SH.sha256_field_rows_hopper(fs, rows)
+    assert torch.equal(got, SH.sha256_field_rows_plain(fs, rows))
+    msgs = [b"".join(RF.field_to_bytes(rfs, vals[e][i]) for e in range(k))
+            for i in range(n)]
+    raw = np.frombuffer(b"".join(msgs), dtype=np.uint8).reshape(n, -1)
+    blocks, _ = RS._pad_messages(raw)
+    want = np.asarray(RS.sha256_batch_blocks(jnp.asarray(blocks)))
+    np.testing.assert_array_equal(got.T.numpy().astype(np.uint32), want)
+    assert SH.digests_to_bytes(got) == RS.sha256_many(msgs)
+
+
+@pytest.mark.parametrize("length", [0, 64, 128, 256])
+def test_padding_schedule_against_a_compression(length):
+    """Rounds that take K + W from `padding_schedule(length)` give the
+    compression of the padding block from any state (Python ints)."""
+    M = 0xFFFFFFFF
+
+    def rotr(x, n):
+        return ((x >> n) | (x << (32 - n))) & M
+
+    rng = random.Random(length)
+    st = [rng.randrange(1 << 32) for _ in range(8)]
+    a, b, c, d, e, f, g, h = st
+    for kw in SH.padding_schedule(length):
+        s1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)
+        t1 = (h + s1 + ((e & f) ^ (~e & g & M)) + kw) & M
+        s0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)
+        h, g, f, e, d, c, b, a = (g, f, e, (d + t1) & M, c, b, a,
+                                  (t1 + s0 + ((a & b) ^ (a & c) ^ (b & c)))
+                                  & M)
+    got = [(x + y) & M for x, y in zip(st, (a, b, c, d, e, f, g, h))]
+    pad = SH.pad_messages(torch.zeros((1, length), dtype=torch.int64))
+    block = SH._to_u32(pad[-16:, 0])
+    want = SH._compress_plain([torch.tensor([v]) for v in st],
+                              list(block.reshape(16, 1)))
+    assert got == [int(v) for v in want]
+    for bad in (1, 63, 65):
+        with pytest.raises(ValueError):
+            SH.padding_schedule(bad)
+
+
+def test_block_form_length_is_checked():
+    """Given a length, the padded words must be that length's blocks; on
+    the CPU the plain version runs either way."""
+    msgs = _messages(3, 64, 5)
+    raw = torch.tensor([list(m) for m in msgs], dtype=torch.int64)
+    words = SH.pad_messages(raw)
+    assert SH.digests_to_bytes(SH.sha256_blocks_hopper(words, 64)) == \
+        [hashlib.sha256(m).digest() for m in msgs]
+    with pytest.raises(ValueError):
+        SH.sha256_blocks_hopper(words, 128)
+    with pytest.raises(ValueError):
+        SH.sha256_field_rows_hopper(TP.BLS12_381_FR, torch.zeros(
+            (2, 4, 3), dtype=torch.int32))
 
 
 @functools.lru_cache(maxsize=None)

@@ -611,3 +611,33 @@ def test_sass_mix_counts_each_loop_by_its_own_trips():
         (1 + 8, 8 + 57, 57 + 8 + 1 + 1, 1 + 8 + 57 + 57 + 8 + 8 + 1 + 1)
     with pytest.raises(ValueError):          # a count for each loop
         SM.mix(body, trips=[8])
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem, 1024 bytes cmem[3]
+ptxas info    : Compiling entry function '_Z20sha256_blocks_kernelPKjxi11ZkSha256PadPj' for 'sm_90a'
+ptxas info    : Function properties for _Z20sha256_blocks_kernelPKjxi11ZkSha256PadPj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, 736 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z15mxu_pass_kernelILi64EEvPKi' for 'sm_90a'
+ptxas info    : Function properties for _Z15mxu_pass_kernelILi64EEvPKi
+    936 bytes stack frame, 936 bytes spill stores, 1308 bytes spill loads
+ptxas info    : Used 168 registers, 560 bytes cmem[0]
+"""
+
+
+def test_ptxas_table_reads_registers_and_spills_by_kernel():
+    """The timing tools' `ptxas -v` reader keeps the kernels its key picks,
+    each with its registers, spills and stack frame, and as the tools key
+    them (kernel 7 by mangled name, kernel 8 by table side)."""
+    from crypto3_zk_tpu_torch.tools import mxu_pass_times as MPT
+    from crypto3_zk_tpu_torch.tools import sha256_times as ST
+    from crypto3_zk_tpu_torch.tools import timing as T
+    assert ST.ptxas_kernels(PTXAS_LOG) == {
+        "_Z20sha256_blocks_kernelPKjxi11ZkSha256PadPj": {
+            "registers": 72, "spill_stores": 0, "spill_loads": 0,
+            "stack_frame": 0}}
+    assert MPT.ptxas_by_side(PTXAS_LOG) == {64: {
+        "registers": 168, "spill_stores": 936, "spill_loads": 1308,
+        "stack_frame": 936}}
+    assert T.ptxas_table(PTXAS_LOG, lambda f: None) == {}
