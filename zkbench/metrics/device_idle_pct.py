@@ -1,0 +1,9 @@
+"""The share of the profiled proofs' wall time in which no operation ran on
+the card, in percent (the profiler's device intervals, merged)."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
