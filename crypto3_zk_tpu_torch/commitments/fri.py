@@ -44,6 +44,7 @@ from ..parallel.context import axis_size, get_mesh
 from ..poly.domain import Domain, calculate_domain_set
 from ..poly.polynomial import PolyDFS
 from ..transcript.fiat_shamir import Transcript
+from ..utils.profiling import spanned
 from .batched import eval_coeffs
 from .merkle import MerkleTree, make_hasher
 
@@ -378,10 +379,29 @@ def proof_eval(g: dict[int, list[PolyDFS]], combined_Q: PolyDFS,
                params: FRIParams, transcript: Transcript,
                clock: Optional[PhaseClock] = None) -> FRIProof:
     """`clock`, where given, is marked after the commit phase and after the
-    query phase."""
-    fs = params.fs
+    query phase; the two are spans, `zk.fri.commit_phase` and
+    `zk.fri.query_phase`."""
     assert params.check()
+    fri_trees, fri_roots, fs_list, final_polynomial = _commit_phase(
+        combined_Q, combined_Q_precommitment, params, transcript)
+    if clock is not None:
+        clock.mark("fri_commit_phase")
+    query_proofs, pow_value = _query_phase(
+        g, precommitments, fri_trees, fs_list, final_polynomial, params,
+        transcript)
+    if clock is not None:
+        clock.mark("fri_query_phase")
+    return FRIProof(fri_roots=fri_roots, final_polynomial=final_polynomial,
+                    query_proofs=query_proofs, proof_of_work=pow_value)
 
+
+@spanned("zk.fri.commit_phase")
+def _commit_phase(combined_Q: PolyDFS,
+                  combined_Q_precommitment: Precommitment,
+                  params: FRIParams, transcript: Transcript):
+    """The FRI layers' trees and roots, the folded values of each outer
+    round, and the final polynomial's coefficients."""
+    fs = params.fs
     # --- commit phase ---
     f = combined_Q
     precommitment = combined_Q_precommitment
@@ -408,10 +428,17 @@ def proof_eval(g: dict[int, list[PolyDFS]], combined_Q: PolyDFS,
     final_polynomial = f.coefficients().to_ints()
     while len(final_polynomial) > 1 and final_polynomial[-1] == 0:
         final_polynomial.pop()
+    return fri_trees, fri_roots, fs_list, final_polynomial
 
-    if clock is not None:
-        clock.mark("fri_commit_phase")
 
+@spanned("zk.fri.query_phase")
+def _query_phase(g: dict[int, list[PolyDFS]],
+                 precommitments: dict[int, Precommitment],
+                 fri_trees: list[Precommitment], fs_list: list,
+                 final_polynomial: list[int], params: FRIParams,
+                 transcript: Transcript):
+    """The grinding proof, the query positions and each query's proof."""
+    fs = params.fs
     # --- grinding ---
     pow_value = None
     if params.use_grinding:
@@ -549,11 +576,7 @@ def proof_eval(g: dict[int, list[PolyDFS]], combined_Q: PolyDFS,
                                            leaf_index=leaf_idx))
         query_proofs.append(QueryProof(initial_proof=initial_proof,
                                        round_proofs=round_proofs))
-
-    if clock is not None:
-        clock.mark("fri_query_phase")
-    return FRIProof(fri_roots=fri_roots, final_polynomial=final_polynomial,
-                    query_proofs=query_proofs, proof_of_work=pow_value)
+    return query_proofs, pow_value
 
 
 # ---------------------------------------------------------------------------

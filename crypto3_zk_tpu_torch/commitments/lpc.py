@@ -27,6 +27,7 @@ from ..ops import ntt as N
 from ..poly.domain import get_domain
 from ..poly.polynomial import PolyDFS
 from ..transcript.fiat_shamir import Transcript
+from ..utils.profiling import span, spanned
 from . import fri as FRI
 from .batched import EvalStorage, PolysEvaluator
 
@@ -169,18 +170,41 @@ class LPCScheme(PolysEvaluator):
             self._z.set_batch(k, vals)
 
     # --- proof_eval (lpc.hpp:113-200) ---
+    @spanned("zk.lpc.proof_eval")
     def proof_eval(self, transcript: Transcript,
                    clock: FRI.PhaseClock | None = None) -> LPCProof:
         """`clock`, where given, is marked after each phase (`eval_polys`,
-        `combined_q`, `q_precommit`, then FRI's two)."""
+        `combined_q`, `q_precommit`, then FRI's two); the phases are spans
+        under `zk.lpc.proof_eval` (`zk.lpc.<phase>`, `zk.fri.<phase>`)."""
         def mark(name):
             if clock is not None:
                 clock.mark(name)
 
-        fs = self.fs
         device = next(iter(self._trees.values())).values.device
-        self.eval_polys()
+        with span("zk.lpc.eval_polys"):
+            self.eval_polys()
         mark("eval_polys")
+        with span("zk.lpc.combined_q"):
+            combined_Q_v = self._combined_q_values(transcript, device)
+        mark("combined_q")
+        with span("zk.lpc.q_precommit"):
+            combined_Q = PolyDFS(self.fs, combined_Q_v,
+                                 self.fri_params.max_degree + 1)
+            combined_Q_pre = FRI.precommit([combined_Q], self.fri_params.D[0],
+                                           self.fri_params.step_list[0],
+                                           self.fri_params)
+        mark("q_precommit")
+        ordered_polys = {k: self._polys[k] for k in sorted(self._polys.keys())}
+        fri_proof = FRI.proof_eval(ordered_polys, combined_Q, self._trees,
+                                   combined_Q_pre, self.fri_params, transcript,
+                                   clock)
+        return LPCProof(z=self._z, fri_proof=fri_proof)
+
+    def _combined_q_values(self, transcript: Transcript,
+                           device) -> torch.Tensor:
+        """The trees' roots absorbed, theta drawn, and the combined
+        quotient's values over the first FRI domain."""
+        fs = self.fs
         for k in sorted(self._trees.keys()):
             FRI.absorb_root(transcript, self.fri_params, self._trees[k].root())
 
@@ -230,18 +254,7 @@ class LPCScheme(PolysEvaluator):
                 self._omega_pows)
         else:
             combined_Q_v = L.zeros(fs, (n0,), device)
-        mark("combined_q")
-
-        combined_Q = PolyDFS(fs, combined_Q_v, self.fri_params.max_degree + 1)
-        combined_Q_pre = FRI.precommit([combined_Q], D0,
-                                       self.fri_params.step_list[0],
-                                       self.fri_params)
-        mark("q_precommit")
-        ordered_polys = {k: self._polys[k] for k in sorted(self._polys.keys())}
-        fri_proof = FRI.proof_eval(ordered_polys, combined_Q, self._trees,
-                                   combined_Q_pre, self.fri_params, transcript,
-                                   clock)
-        return LPCProof(z=self._z, fri_proof=fri_proof)
+        return combined_Q_v
 
     # --- verify_eval (lpc.hpp:202-267) ---
     def verify_eval(self, proof: LPCProof, commitments: dict[int, object],

@@ -13,7 +13,8 @@ Counterpart of `models/groth16/__init__.py` of the JAX package
 
 `generate` and `prove` take the device explicitly; the default is the card
 and there is no silent fallback to the CPU. `prove` records the seconds of
-its phases in `LAST_PROVE_SECONDS`.
+its phases in `LAST_PROVE_SECONDS`; the same phases are spans under
+`zk.groth16.prove` (`witness_map`, `msm.<query>`, `assembly`).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from ...fields import curves as CV
 from ...ops import limbs as L
 from ...ops.msm import fixed_base_exp_batch, msm_host
 from ...ops.msm_affine import MSMBases
+from ...utils.profiling import span, spanned
 
 # Below this count the host double-and-add is faster than paying a device
 # dispatch; above it the generator's queries go through the batched windowed
@@ -40,6 +42,8 @@ _MSM_WINDOW_BITS = 16
 # seconds of the phases of the last `prove` call (host clock, each phase
 # ending in host results)
 LAST_PROVE_SECONDS: dict[str, float] = {}
+# the span of each query's MSM in a proof
+_MSM_SPANS = {q: f"zk.groth16.msm.{q}" for q in ("A", "B1", "B2", "H", "L")}
 
 
 @dataclasses.dataclass
@@ -203,6 +207,7 @@ def _msm_skip_inf(curve, bases, scalars, group="g1", use_device=True,
                     group=group)
 
 
+@spanned("zk.groth16.prove")
 def prove(pk: ProvingKey, primary: list[int], aux: list[int],
           rng: random.Random | None = None,
           zk_rs: tuple[int, int] | None = None, device=None) -> Proof:
@@ -215,8 +220,9 @@ def prove(pk: ProvingKey, primary: list[int], aux: list[int],
     seconds = LAST_PROVE_SECONDS
     seconds.clear()
     t0 = time.perf_counter()
-    qap_wit = QAP.witness_map(fs, pk.constraint_system, primary, aux, 0, 0, 0,
-                              device=device)
+    with span("zk.groth16.witness_map"):
+        qap_wit = QAP.witness_map(fs, pk.constraint_system, primary, aux,
+                                  0, 0, 0, device=device)
     assert qap_wit.coefficients_for_H[qap_wit.degree - 1] == 0
     assert qap_wit.coefficients_for_H[qap_wit.degree] == 0
     seconds["witness_map"] = time.perf_counter() - t0
@@ -228,8 +234,10 @@ def prove(pk: ProvingKey, primary: list[int], aux: list[int],
 
     def run(name, bases, scalars, group="g1"):
         t = time.perf_counter()
-        out = _msm_skip_inf(curve, bases, scalars, group=group,
-                            bases_cache=cache, cache_key=name, device=device)
+        with span(_MSM_SPANS[name]):
+            out = _msm_skip_inf(curve, bases, scalars, group=group,
+                                bases_cache=cache, cache_key=name,
+                                device=device)
         seconds["msm_" + name] = time.perf_counter() - t
         return out
 
@@ -241,14 +249,15 @@ def prove(pk: ProvingKey, primary: list[int], aux: list[int],
     eval_Lt = run("L", pk.L_query, assignment[qap_wit.num_inputs + 1:])
 
     t0 = time.perf_counter()
-    add, mul = (lambda a, b: CV.g1_add(curve, a, b)), \
-        (lambda a, k: CV.g1_mul(curve, a, k))
-    g1_A = add(add(pk.alpha_g1, eval_At), mul(pk.delta_g1, r))
-    g1_B = add(add(pk.beta_g1, eval_Bt_g1), mul(pk.delta_g1, s))
-    g2_B = CV.g2_add(curve, CV.g2_add(curve, pk.beta_g2, eval_Bt_g2),
-                     CV.g2_mul(curve, pk.delta_g2, s))
-    g1_C = add(add(add(add(eval_Ht, eval_Lt), mul(g1_A, s)), mul(g1_B, r)),
-               mul(pk.delta_g1, (-r * s) % p))
+    with span("zk.groth16.assembly"):
+        add, mul = (lambda a, b: CV.g1_add(curve, a, b)), \
+            (lambda a, k: CV.g1_mul(curve, a, k))
+        g1_A = add(add(pk.alpha_g1, eval_At), mul(pk.delta_g1, r))
+        g1_B = add(add(pk.beta_g1, eval_Bt_g1), mul(pk.delta_g1, s))
+        g2_B = CV.g2_add(curve, CV.g2_add(curve, pk.beta_g2, eval_Bt_g2),
+                         CV.g2_mul(curve, pk.delta_g2, s))
+        g1_C = add(add(add(add(eval_Ht, eval_Lt), mul(g1_A, s)),
+                       mul(g1_B, r)), mul(pk.delta_g1, (-r * s) % p))
     seconds["assembly"] = time.perf_counter() - t0
     return Proof(g_A=g1_A, g_B=g2_B, g_C=g1_C)
 

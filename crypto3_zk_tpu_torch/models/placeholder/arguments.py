@@ -26,6 +26,7 @@ from ...arithmetization import plonk as PK
 from ...ops import limbs as L
 from ...poly.polynomial import PolyDFS, polynomial_product
 from ...transcript.fiat_shamir import Transcript
+from ...utils.profiling import spanned
 from . import common as C
 from .preprocessor import (CommonData, PublicPreprocessedData,
                            lagrange_polynomial)
@@ -110,6 +111,7 @@ def _running_parts(fs, previous: PolyDFS, gs: list[PolyDFS],
     return acc, previous, parts
 
 
+@spanned("zk.placeholder.permutation_argument")
 def permutation_prove_eval(
         params: C.PlaceholderParams,
         constraint_system: PK.ConstraintSystem,
@@ -284,6 +286,7 @@ def column_var_fn(table: PolynomialTable, cache: dict | None = None):
     return var_fn
 
 
+@spanned("zk.placeholder.gates_argument")
 def gates_prove_eval(params: C.PlaceholderParams,
                      constraint_system: PK.ConstraintSystem,
                      table: PolynomialTable,

@@ -20,6 +20,7 @@ from ...commitments.fri import PhaseClock
 from ...ops import limbs as L
 from ...poly.polynomial import PolyDFS, polynomial_product, polynomial_sum
 from ...transcript.fiat_shamir import Transcript
+from ...utils.profiling import span, spanned
 from . import common as C
 from .arguments import (PolynomialTable, _reduce_dfs_domain, _running_parts,
                         column_var_fn, scalar_expr)
@@ -119,6 +120,7 @@ def _shift_term(fs, v: torch.Tensor, obg: torch.Tensor,
                  L.mont_mul(fs, beta_c, torch.roll(v, -1, dims=-1)))
 
 
+@spanned("zk.placeholder.lookup")
 def lookup_prove_eval(params: C.PlaceholderParams,
                       constraint_system: PK.ConstraintSystem,
                       preprocessed: PublicPreprocessedData,
@@ -130,7 +132,9 @@ def lookup_prove_eval(params: C.PlaceholderParams,
     """`clock`, where given, is marked after the compressed columns
     (`lookup_prepare`), their decode (`lookup_to_host`), the host sort
     (`lookup_sort`), the sorted columns' encode (`lookup_encode`) and their
-    commit (`lookup_commit`)."""
+    commit (`lookup_commit`). A call is the span `zk.placeholder.lookup`,
+    and the same steps are spans under it, `zk.lookup.<step>` (`prepare`,
+    `to_host`, `sort`, `encode`, `commit`)."""
     def mark(name):
         if clock is not None:
             clock.mark(name)
@@ -142,32 +146,38 @@ def lookup_prove_eval(params: C.PlaceholderParams,
     usable = desc.usable_rows_amount
     dev = table.device
 
-    theta = transcript.challenge(fs)
+    with span("zk.lookup.prepare"):
+        theta = transcript.challenge(fs)
 
-    one_poly = PolyDFS.constant(fs, 1, n, dev)
-    mask = one_poly - preprocessed.q_last - preprocessed.q_blind
+        one_poly = PolyDFS.constant(fs, 1, n, dev)
+        mask = one_poly - preprocessed.q_last - preprocessed.q_blind
 
-    lookup_value = _prepare_lookup_value(fs, constraint_system, table,
-                                         theta, mask)
-    lookup_input = _prepare_lookup_input(fs, constraint_system, table, theta)
+        lookup_value = _prepare_lookup_value(fs, constraint_system, table,
+                                             theta, mask)
+        lookup_input = _prepare_lookup_input(fs, constraint_system, table,
+                                             theta)
 
-    reduced_value = [_reduce_dfs_domain(v, n) for v in lookup_value]
-    reduced_input = [_reduce_dfs_domain(v, n) for v in lookup_input]
+        reduced_value = [_reduce_dfs_domain(v, n) for v in lookup_value]
+        reduced_input = [_reduce_dfs_domain(v, n) for v in lookup_input]
     mark("lookup_prepare")
 
-    rv_ints = [v.to_ints() for v in reduced_value]
-    ri_ints = [v.to_ints() for v in reduced_input]
+    with span("zk.lookup.to_host"):
+        rv_ints = [v.to_ints() for v in reduced_value]
+        ri_ints = [v.to_ints() for v in reduced_input]
     mark("lookup_to_host")
-    sorted_cols = _sort_polynomials(fs, ri_ints, rv_ints, n, usable)
+    with span("zk.lookup.sort"):
+        sorted_cols = _sort_polynomials(fs, ri_ints, rv_ints, n, usable)
     mark("lookup_sort")
-    sorted_polys = [PolyDFS(fs, L.encode(fs, col, dev), n)
-                    for col in sorted_cols]
+    with span("zk.lookup.encode"):
+        sorted_polys = [PolyDFS(fs, L.encode(fs, col, dev), n)
+                        for col in sorted_cols]
     mark("lookup_encode")
 
-    for s in sorted_polys:
-        commitment_scheme.append_to_batch(C.LOOKUP_BATCH, s)
-    lookup_commitment = commitment_scheme.commit(C.LOOKUP_BATCH)
-    _absorb_commitment(transcript, fs, lookup_commitment)
+    with span("zk.lookup.commit"):
+        for s in sorted_polys:
+            commitment_scheme.append_to_batch(C.LOOKUP_BATCH, s)
+        lookup_commitment = commitment_scheme.commit(C.LOOKUP_BATCH)
+        _absorb_commitment(transcript, fs, lookup_commitment)
     mark("lookup_commit")
 
     beta = transcript.challenge(fs)

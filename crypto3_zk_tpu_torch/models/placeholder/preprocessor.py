@@ -26,6 +26,7 @@ from ...ops import limbs as L
 from ...poly.domain import Domain, get_domain
 from ...poly.polynomial import PolyDFS
 from ...transcript.poseidon_transcript import make_transcript
+from ...utils.profiling import spanned
 from . import common as C
 
 
@@ -345,6 +346,7 @@ def process_public(params: C.PlaceholderParams,
     )
 
 
+@spanned("zk.placeholder.process_private")
 def process_private(params: C.PlaceholderParams,
                     constraint_system: PK.ConstraintSystem,
                     assignment: PK.Assignment,

@@ -22,6 +22,7 @@ from ...ops import ntt as N
 from ...poly.domain import get_domain
 from ...poly.polynomial import PolyDFS, polynomial_sum
 from ...transcript.poseidon_transcript import make_transcript
+from ...utils.profiling import span, spanned
 from . import common as C
 from .arguments import (PolynomialTable, gates_prove_eval,
                         permutation_prove_eval)
@@ -88,6 +89,7 @@ def generate_evaluation_points(scheme, common, constraint_system: PK.ConstraintS
                 poly_id=start_index + ind)
 
 
+@spanned("zk.placeholder.quotient")
 def quotient_chunks(fs, F_dfs: list[PolyDFS], alphas: list[int], n: int,
                     n_chunks_real: int, split_size: int) -> list[PolyDFS]:
     """`prover.hpp:219-266`: the alpha-weighted sum of F, its coefficients,
@@ -115,6 +117,7 @@ def quotient_chunks(fs, F_dfs: list[PolyDFS], alphas: list[int], n: int,
     return chunks
 
 
+@spanned("zk.placeholder.prove")
 def prove(params: C.PlaceholderParams,
           preprocessed_public: PublicPreprocessedData,
           preprocessed_private: PrivatePreprocessedData,
@@ -131,7 +134,8 @@ def prove(params: C.PlaceholderParams,
     `permutation_argument`, the lookup argument's steps and
     `lookup_argument`, `permutation_commit`, `gates_argument`, `quotient`,
     `quotient_commit`, then the scheme's `proof_eval`'s); without one nothing
-    waits for the device but what needs a value. `transcript`, where
+    waits for the device but what needs a value. The steps are spans
+    under `zk.placeholder.prove` (PERF.md, section 3). `transcript`, where
     given, is the fresh transcript to prove with (the caller then draws the
     next challenge from it); by default one of `params.transcript_hash`."""
     def mark(name):
@@ -162,14 +166,15 @@ def prove(params: C.PlaceholderParams,
     proof = C.PlaceholderProof(commitments={})
 
     # 2. commit witness + public input columns
-    commitment_scheme.append_to_batch(C.VARIABLE_VALUES_BATCH,
-                                      table.witnesses)
-    commitment_scheme.append_to_batch(C.VARIABLE_VALUES_BATCH,
-                                      table.public_inputs)
-    proof.commitments[C.VARIABLE_VALUES_BATCH] = \
-        commitment_scheme.commit(C.VARIABLE_VALUES_BATCH)
-    _absorb_commitment(transcript, fs,
-                       proof.commitments[C.VARIABLE_VALUES_BATCH])
+    with span("zk.placeholder.variable_commit"):
+        commitment_scheme.append_to_batch(C.VARIABLE_VALUES_BATCH,
+                                          table.witnesses)
+        commitment_scheme.append_to_batch(C.VARIABLE_VALUES_BATCH,
+                                          table.public_inputs)
+        proof.commitments[C.VARIABLE_VALUES_BATCH] = \
+            commitment_scheme.commit(C.VARIABLE_VALUES_BATCH)
+        _absorb_commitment(transcript, fs,
+                           proof.commitments[C.VARIABLE_VALUES_BATCH])
     mark("variable_commit")
 
     F_dfs: list[PolyDFS] = [PolyDFS.constant(fs, 0, n, dev)
@@ -193,10 +198,11 @@ def prove(params: C.PlaceholderParams,
         mark("lookup_argument")
 
     if has_copy or is_lookup_enabled:
-        proof.commitments[C.PERMUTATION_BATCH] = \
-            commitment_scheme.commit(C.PERMUTATION_BATCH)
-        _absorb_commitment(transcript, fs,
-                           proof.commitments[C.PERMUTATION_BATCH])
+        with span("zk.placeholder.permutation_commit"):
+            proof.commitments[C.PERMUTATION_BATCH] = \
+                commitment_scheme.commit(C.PERMUTATION_BATCH)
+            _absorb_commitment(transcript, fs,
+                               proof.commitments[C.PERMUTATION_BATCH])
         mark("permutation_commit")
 
     # 6. gates argument
@@ -226,10 +232,12 @@ def prove(params: C.PlaceholderParams,
                                split_size)
     mark("quotient")
 
-    commitment_scheme.append_to_batch(C.QUOTIENT_BATCH, T_chunks)
-    proof.commitments[C.QUOTIENT_BATCH] = \
-        commitment_scheme.commit(C.QUOTIENT_BATCH)
-    _absorb_commitment(transcript, fs, proof.commitments[C.QUOTIENT_BATCH])
+    with span("zk.placeholder.quotient_commit"):
+        commitment_scheme.append_to_batch(C.QUOTIENT_BATCH, T_chunks)
+        proof.commitments[C.QUOTIENT_BATCH] = \
+            commitment_scheme.commit(C.QUOTIENT_BATCH)
+        _absorb_commitment(transcript, fs,
+                           proof.commitments[C.QUOTIENT_BATCH])
     mark("quotient_commit")
 
     # 8. evaluation proof

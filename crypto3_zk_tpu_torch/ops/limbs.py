@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..fields.params import FieldSpec
+from ..utils.profiling import spanned
 
 I32 = torch.int32
 I64 = torch.int64
@@ -65,12 +66,22 @@ def from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
         .to(resolve_device(device))
 
 
+@spanned("zk.limbs.encode")
 def encode(fs: FieldSpec, xs: Sequence[int], device=None) -> torch.Tensor:
     """Python ints -> limb tensor in Montgomery form."""
     return from_numpy(pack_ints(fs, [x % fs.p * fs.R % fs.p for x in xs]),
                       device)
 
 
+@spanned("zk.limbs.encode")
+def encode_canonical(fs: FieldSpec, xs: Sequence[int],
+                     device=None) -> torch.Tensor:
+    """Python ints -> limb tensor of their canonical digits (NOT
+    Montgomery-encoded; scalars of an MSM)."""
+    return from_numpy(pack_ints(fs, xs), device)
+
+
+@spanned("zk.limbs.decode")
 def decode(fs: FieldSpec, arr) -> list[int]:
     """Montgomery limb tensor -> python ints."""
     return [x * fs.Rinv % fs.p for x in unpack_ints(fs, arr)]

@@ -43,6 +43,7 @@ import torch
 from . import curve as CRV
 from . import hopper_msm as HM
 from . import limbs as L
+from ..utils.profiling import span
 
 _DEAD = 0x7FFFFFFF      # sorts after every live (window, bucket) key
 _LANES_CAP = 1 << 22    # max flattened (windows x points) lanes per group
@@ -460,7 +461,7 @@ class MSMBases:
         if not scalars:
             return None
         return self.run_limbs(
-            L.from_numpy(L.pack_ints(self.curve.fr, scalars), self.device))
+            L.encode_canonical(self.curve.fr, scalars, self.device))
 
     def run_limbs(self, limbs: torch.Tensor):
         """The MSM of scalars that lie on the bases' device as canonical
@@ -498,10 +499,11 @@ class MSMBases:
         if inf.size:
             limbs = limbs.clone()
             limbs[:, torch.from_numpy(inf).to(self.device)] = 0
-        sdig = _signed_digits_dev(
-            _window_digits_dev(limbs, self.c, windows), self.c)[lo:hi]
-        g_cnt, wg = _window_grouping(hi - lo, m)
-        maxima = _pass_maxima_dev(sdig, g_cnt, wg, self.c).tolist()
+        with span("zk.msm.digits"):
+            sdig = _signed_digits_dev(
+                _window_digits_dev(limbs, self.c, windows), self.c)[lo:hi]
+            g_cnt, wg = _window_grouping(hi - lo, m)
+            maxima = _pass_maxima_dev(sdig, g_cnt, wg, self.c).tolist()
         if not any(maxima):
             return None
         # halving passes a group needs: after k* passes every bucket holds
@@ -509,8 +511,12 @@ class MSMBases:
         k_stars = [(mx - 1).bit_length() if mx > 1 else 0 for mx in maxima]
         coords = tuple(_tmap(lambda a: a[..., :m], t)
                        for t in (self.X, self.Y, self.Yneg))
-        totals = [_msm_group(self.ops, coords, sdig[g * wg:(g + 1) * wg],
-                             k_stars[g], self.c) for g in range(g_cnt)]
+        totals = []
+        for g in range(g_cnt):
+            with span("zk.msm.group"):
+                totals.append(_msm_group(self.ops, coords,
+                                         sdig[g * wg:(g + 1) * wg],
+                                         k_stars[g], self.c))
         return tuple(_tmap(lambda *a: torch.cat(a, dim=-1), *cs)
                      for cs in zip(*totals))
 
@@ -519,14 +525,16 @@ def _combine_windows(curve, ops, totals, group: str, c: int):
     """totals: per-window Jacobian coords of shape (NL, W); host Horner
     combine sum_w 2^(c*w) * T_w."""
     from ..fields import curves as CV
-    pts = CRV.to_affine_host(ops, totals)
+    with span("zk.msm.to_affine"):
+        pts = CRV.to_affine_host(ops, totals)
     host_add = CV.g1_add if group == "g1" else CV.g2_add
     host_mul = CV.g1_mul if group == "g1" else CV.g2_mul
     acc = None
-    for w in reversed(range(len(pts))):
-        if acc is not None:
-            acc = host_mul(curve, acc, 1 << c)
-        acc = host_add(curve, acc, pts[w])
+    with span("zk.msm.combine"):
+        for w in reversed(range(len(pts))):
+            if acc is not None:
+                acc = host_mul(curve, acc, 1 << c)
+            acc = host_add(curve, acc, pts[w])
     return acc
 
 

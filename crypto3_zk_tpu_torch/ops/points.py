@@ -223,7 +223,7 @@ class PointVector:
 
 def scalar_digits(fr, scalars: list[int], device) -> torch.Tensor:
     """Canonical (16, n) digits of the scalars, reduced mod r."""
-    return L.from_numpy(L.pack_ints(fr, scalars), device)
+    return L.encode_canonical(fr, scalars, device)
 
 
 def lanes(P, group: str) -> int:

@@ -47,8 +47,8 @@ def _msm_on_mesh(curve, points_affine, scalars, mesh, axis, c, group,
     mine = slice(me * chunk, (me + 1) * chunk)
     bases = MA.MSMBases(curve, points[mine], group, window_bits=c,
                         device=device)
-    totals = bases.window_totals(L.from_numpy(
-        L.pack_ints(curve.fr, scalars[mine]), bases.device))
+    totals = bases.window_totals(
+        L.encode_canonical(curve.fr, scalars[mine], bases.device))
     if totals is None:                    # every scalar of the chunk is 0
         totals = CRV.inf_point(bases.ops, (bases.windows,))
     pg = mesh.get_group(axis)

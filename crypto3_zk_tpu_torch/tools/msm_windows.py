@@ -122,7 +122,7 @@ def main(argv=None) -> int:
     widths = [int(w) for w in args.widths.split(",")]
     for trial in range(args.trials):
         scalars = [rng.randrange(curve.fr.p) for _ in range(n)]
-        canonical = L.from_numpy(L.pack_ints(curve.fr, scalars), "cuda")
+        canonical = L.encode_canonical(curve.fr, scalars, "cuda")
         sweep = window_sweep(curve, points, canonical, widths, args.rounds)
         print(json.dumps({"trial": trial, "n": n, "rounds": args.rounds,
                           "quartiles_ms": {c: quartiles(v) for c, v in

@@ -85,7 +85,7 @@ def msm_checkpointed(curve, points_affine, scalars, ckpt_dir: str,
 
     bases = MSMBases(curve, points_affine, group, window_bits=c,
                      device=device)
-    limbs = L.from_numpy(L.pack_ints(curve.fr, scalars), bases.device)
+    limbs = L.encode_canonical(curve.fr, scalars, bases.device)
     key = _job_key(curve, points_affine, scalars, c, group)
     mgr = CheckpointManager(ckpt_dir)
     results: list = []

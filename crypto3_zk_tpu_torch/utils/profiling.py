@@ -1,67 +1,60 @@
-"""Scoped profiling and parameter reporting.
+"""Spans of the proving paths, and parameter reporting.
 
 Counterpart of `utils/profiling.py` of the JAX package:
-- `profile_scope`, `PROFILE_PLACEHOLDER_SCOPE` /
-  `placeholder_scoped_profiler` of the reference
-  (`detail/placeholder_scoped_profiler.hpp:39-126`): wall-clock scopes with
-  an aggregate call-stats registry, printed at exit; each scope is also a
-  `torch.profiler.record_function` range, so that it shows in a
-  `torch.profiler` trace;
+- `span`, the port's form of `PROFILE_PLACEHOLDER_SCOPE`
+  (`detail/placeholder_scoped_profiler.hpp:39-126`): a named range of the
+  proving path, `zk.<layer>.<step>`, that lands among a `torch.profiler`
+  trace's CPU events, on the same clock as the card's kernels; `spanned`
+  puts a whole function under one. Spans are off unless a caller switches
+  them on around the proofs it profiles (`spans_on`); off, a span is one
+  check of a module-level flag. A span never waits for the card and reads
+  no clock of its own: what it shows is read from the profiler's trace
+  (PERF.md, section 3, lists the names);
 - `placeholder_info` / `print_placeholder_params`
   (`detail/profiling.hpp:50-282`): proof-size and parameter reporters.
-
-Enabled by ZK_TPU_PROFILING=1 (the reference gates on the
-ZK_PLACEHOLDER_PROFILING_ENABLED compile flag). A scope's wall clock does
-not wait for the card: a caller that times device work drains it inside
-the scope.
 """
 from __future__ import annotations
 
-import atexit
-import collections
+import contextlib
+import functools
 import json
-import os
-import time
 
 import torch
 
-ENABLED = os.environ.get("ZK_TPU_PROFILING", "0") == "1"
-
-_stats = collections.defaultdict(lambda: [0, 0.0])  # name -> [calls, total_s]
-
-
-class profile_scope:
-    """`PROFILE_PLACEHOLDER_SCOPE(name)`."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self._range = None
-
-    def __enter__(self):
-        if ENABLED:
-            self._t0 = time.perf_counter()
-            self._range = torch.profiler.record_function(self.name)
-            self._range.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        if ENABLED:
-            self._range.__exit__(*exc)
-            dt = time.perf_counter() - self._t0
-            _stats[self.name][0] += 1
-            _stats[self.name][1] += dt
-            print(f"[zk-tpu profile] {self.name}: {dt:.4f}s", flush=True)
-        return False
+_ON = False
+_OFF = contextlib.nullcontext()      # what `span` gives while spans are off
 
 
-@atexit.register
-def _print_call_stats():
-    """`placeholder_scoped_aggregate_profiler` exit dump."""
-    if ENABLED and _stats:
-        print("[zk-tpu profile] aggregate call stats:")
-        for name, (calls, total) in sorted(_stats.items(),
-                                           key=lambda kv: -kv[1][1]):
-            print(f"  {name}: {calls} calls, {total:.4f}s total")
+def span(name: str):
+    """A context manager over one step of the proving path: while spans
+    are on, a `torch.profiler.record_function` range named `name`."""
+    if _ON:
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def spanned(name: str):
+    """A decorator: each call of the function is the span `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _ON:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def spans_on():
+    """Spans on inside the block (for the proofs a profiler traces)."""
+    global _ON
+    before, _ON = _ON, True
+    try:
+        yield
+    finally:
+        _ON = before
 
 
 def placeholder_info(proof, common_data) -> dict:

@@ -215,7 +215,8 @@ def test_distributed_fri_query_gather(world):
 
 class Proofs:
     """circuit_1's proof by the JAX package and by the port on one device
-    (under a `profile_scope`), and what their verifiers need."""
+    (with the port's spans on, so that the mesh proof, made with them off,
+    equals it), and what their verifiers need."""
 
     def __init__(self):
         cs, asg, desc, self.public_input = CI.circuit_1(RFS,
@@ -242,7 +243,7 @@ class Proofs:
                                       device="cpu")
         priv = TPP.process_private(self.params, tcs, tasg, tdesc,
                                    device="cpu")
-        with TPROF.profile_scope("placeholder prove"):
+        with TPROF.spans_on():
             self.proof = TPR.prove(self.params, self.pub, priv, tdesc, tcs,
                                    scheme.fork(), device="cpu")
 
